@@ -14,7 +14,9 @@ prints:
 - the host numpy box resample behind the half-resolution read;
 - the wall time of one CUDA main-path run under ``torch.profiler``, the
   device time the profiler saw in it (kernels and copies), the idle
-  share, and the device time by name.
+  share, and the device time by name;
+- the same for one CUDA run of ``chip_smoke.py``'s joint path (two
+  1080p camera pairs written, jointly compressed and read back).
 
 Every time stands beside the card's ``nvidia-smi`` name and power
 limit.  It checks nothing that ``chip_smoke.py`` does not; it is the
@@ -67,15 +69,15 @@ def codec_breakdown(gop: np.ndarray, device: str, reps: int = 3):
     }
 
 
-def device_busy(root: str, clip: np.ndarray):
-    """Wall seconds of one CUDA main-path run and the device time
+def device_busy(run):
+    """Wall seconds of ``run()`` (a CUDA path) and the device time
     ``torch.profiler`` saw in it (kernels and copies; None when the
     profiler reports no device time), with that time by name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        chip_smoke.drive_store(root, clip, "cuda")
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy_us = 0.0
@@ -107,18 +109,27 @@ def main() -> int:
     resample(clip, half, device="cuda")  # integer factor: host numpy
     print(f"resample of the 90-frame clip to {half} (host numpy box"
           f" mean): {time.perf_counter() - t0:.3f} s [{card}]")
-    with tempfile.TemporaryDirectory() as d:
-        wall, busy, by_name = device_busy(os.path.join(d, "vss"), clip)
-    if busy is None:
-        print(f"profiled cuda main path: {wall:.3f} s wall; device time"
-              " not measured (torch.profiler reported none)")
-    else:
-        print(f"profiled cuda main path: {wall:.3f} s wall, device busy"
-              f" {busy:.3f} s, idle share {1 - busy / wall:.4f} [{card}]")
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        print("device time by name: " + "; ".join(
-            f"{k[:60]} {v * 1e3:.2f} ms" for k, v in top))
+    cams = chip_smoke.joint_cameras()
+    for label, drive, data in (
+            ("main path", chip_smoke.drive_store, clip),
+            ("joint path", chip_smoke.drive_joint, cams)):
+        with tempfile.TemporaryDirectory() as d:
+            wall, busy, by_name = device_busy(
+                lambda: drive(os.path.join(d, "vss"), data, "cuda"))
+        report(label, wall, busy, by_name, card)
     return 0
+
+
+def report(label, wall, busy, by_name, card) -> None:
+    if busy is None:
+        print(f"profiled cuda {label}: {wall:.3f} s wall; device time"
+              " not measured (torch.profiler reported none)")
+        return
+    print(f"profiled cuda {label}: {wall:.3f} s wall, device busy"
+          f" {busy:.3f} s, idle share {1 - busy / wall:.4f} [{card}]")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"device time by name ({label}): " + "; ".join(
+        f"{k[:60]} {v * 1e3:.2f} ms" for k, v in top))
 
 
 if __name__ == "__main__":

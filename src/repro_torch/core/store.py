@@ -1380,11 +1380,11 @@ class VSS:
         if io is not None and g.gop_id in io.decoded:
             return io.decoded[g.gop_id]
         if g.joint_ref is not None:
-            raise NotImplementedError(
-                f"GOP {g.gop_id} is jointly compressed; reading joint GOPs"
-                " is not ported to repro_torch yet (ROADMAP Queue 1 item 7)"
-            )
-        frames = self._decode_gop_bytes((io or self.backend).get(g.path))
+            from repro_torch.core import joint as _joint
+
+            frames = _joint.reconstruct_gop(self, g)
+        else:
+            frames = self._decode_gop_bytes((io or self.backend).get(g.path))
         if io is not None:
             io.remember(g.gop_id, frames)
         return frames
@@ -1557,12 +1557,41 @@ class VSS:
         max_pairs: int = 64,
     ) -> List[int]:
         """Find overlapping GOP pairs across logical videos and jointly
-        compress them.  Not ported to repro_torch yet: joint compression
-        needs the warp and histogram kernels (ROADMAP Queue 1 item 7)."""
-        raise NotImplementedError(
-            "joint compression is not ported to repro_torch yet"
-            " (ROADMAP Queue 1 item 7)"
-        )
+        compress them. Returns the created joint record ids."""
+        from repro_torch.core import joint as _joint
+        from repro_torch.core.fingerprint import CandidateIndex
+
+        names = list(names or self.catalog.list_logical())
+        index = CandidateIndex(device=self.device)
+        owner: Dict[int, str] = {}
+        for name in names:
+            for p in self.catalog.physicals_for(name):
+                if not p.is_original or p.tiles != (1, 1):
+                    # tiled GOPs have no single whole-frame object to
+                    # rewrite as a joint segment — leave them alone
+                    continue
+                for g in self.catalog.gops_for(p.physical_id):
+                    if g.joint_ref is not None:
+                        continue
+                    index.add_gop(g.gop_id, self._load_gop_frames(g))
+                    owner[g.gop_id] = name
+        joint_ids: List[int] = []
+        used: set = set()
+        for a, b, _n in index.find_pairs():
+            if len(joint_ids) >= max_pairs:
+                break
+            if a in used or b in used:
+                continue
+            if owner[a] == owner[b]:
+                continue  # pairs must span different logical videos (§5.1)
+            jid = _joint.jointly_compress_gops(
+                self, a, b, merge=merge, tau_db=tau_db
+            )
+            if jid is not None:
+                joint_ids.append(jid)
+                used.add(a)
+                used.add(b)
+        return joint_ids
 
     # -- cache admission (§4) ----------------------------------------------
     def _admit(

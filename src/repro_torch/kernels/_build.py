@@ -29,7 +29,7 @@ from typing import Dict, Iterable, List
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent.parent / "build" / "repro_torch"
-SOURCES = ("delta_codec", "transcode")
+SOURCES = ("delta_codec", "transcode", "warp", "histogram")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
@@ -167,3 +167,26 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     with _count_lock:
         launches.clear()
+
+
+# -- plain-version call counters: the CPU run's counterpart of the launch
+# counters, so a CUDA run's launches can be held against them ------------
+
+plain_calls: Dict[str, int] = {}
+
+
+def count_plain(name: str) -> None:
+    """One more call of kernel ``name``'s plain version (called by its
+    wrapper, where it takes the CPU path, and nowhere else)."""
+    with _count_lock:
+        plain_calls[name] = plain_calls.get(name, 0) + 1
+
+
+def plain_counts() -> Dict[str, int]:
+    with _count_lock:
+        return dict(plain_calls)
+
+
+def reset_plain_counts() -> None:
+    with _count_lock:
+        plain_calls.clear()

@@ -84,6 +84,7 @@ def delta_encode(
     if resid_dtype not in RESID_DTYPES:
         raise TypeError(f"residual dtype {resid_dtype} not in {RESID_DTYPES}")
     if on_cpu(frames):
+        _build.count_plain("delta_encode")
         iframe, resid = ref.delta_encode(
             frames, q=q, lo=lo, hi=hi, vmin=vmin, vmax=vmax)
         return iframe, resid.to(resid_dtype)
@@ -120,6 +121,7 @@ def delta_decode(
     if on_cpu(iframe):
         if residuals.device != iframe.device:
             raise ValueError("iframe and residuals lie on different devices")
+        _build.count_plain("delta_decode")
         return ref.delta_decode(iframe, residuals, q=q, vmin=vmin, vmax=vmax)
     check_cuda(iframe, "iframe", (torch.float32,), 3)
     check_cuda(residuals, "residuals", RESID_DTYPES, 4)

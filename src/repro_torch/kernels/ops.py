@@ -8,15 +8,24 @@ Responsibilities:
     ``ref.py``, any other device raises.
 
 There is no (8, 128) padding as in ``repro.kernels.ops``: the CUDA
-kernels mask their own ragged edges.
+kernels mask their own ragged edges.  Nor is there the reference's
+12 MiB cut-off from the warp kernel to its oracle: the card's warp
+gathers through L2 at any size.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import launch_counts, reset_launch_counts  # noqa: F401
+from repro_torch.kernels._build import (  # noqa: F401
+    launch_counts,
+    plain_counts,
+    reset_launch_counts,
+    reset_plain_counts,
+)
 from repro_torch.kernels.delta_codec import delta_decode, delta_encode  # noqa: F401
+from repro_torch.kernels.histogram import histogram  # noqa: F401
 from repro_torch.kernels.transcode import transcode  # noqa: F401
+from repro_torch.kernels.warp import hmat_f32, warp  # noqa: F401
 
 
 def to_planar(frames: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -102,3 +103,114 @@ def transcode(
     frames = delta_decode(iframe, residuals, q=q_in, vmin=vmin, vmax=vmax)
     small = box_downsample(frames, factor)
     return delta_encode(small, q=q_out, lo=lo, hi=hi, vmin=vmin, vmax=vmax)
+
+
+# --------------------------------------------------------------------------
+# homography warp (bilinear, zero fill outside)
+# --------------------------------------------------------------------------
+
+_I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as ``fmaf`` does, on any device.
+
+    The product of two f32 values is exact in f64; the f64 sum and its
+    exact error (TwoSum) give the exact result, and rounding the sum to
+    odd before the one rounding to f32 keeps the double rounding from
+    ever landing on the wrong side of an f32 tie (53 >= 24 + 2 bits)."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    cd = c.to(torch.float64)
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf))
+    return torch.where((err != 0) & even, toward, s).to(torch.float32)
+
+
+def to_int32_saturating(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 -> int32 conversion (truncating; NaN -> 0, out-of-range
+    and infinite values saturate), as int64 so ``+ 1`` cannot overflow."""
+    x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    return torch.trunc(x.to(torch.float64)).clamp(_I32_MIN, _I32_MAX).to(
+        torch.int64)
+
+
+def warp(
+    img: torch.Tensor,  # (C, H, W) or (N, C, H, W)
+    hmat_inv: torch.Tensor,  # (3, 3): maps dst (x, y, 1) -> src coords
+    out_shape: Tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """out[..., c, y, x] = bilinear(img[..., c], H^-1 @ [x, y, 1]), 0 where
+    a corner falls outside the source; every frame of a leading N axis
+    goes through the same homography.
+
+    The arithmetic is ``repro.kernels.ref.warp``'s as XLA runs it on the
+    CPU: each coordinate row of the 3x3 product is ``fma(m1, y, m0 * x)
+    + m2`` (one fused multiply-add, then an add), and the bilinear tail
+    has no fused operation."""
+    h, w = img.shape[-2:]
+    oh, ow = out_shape if out_shape is not None else (h, w)
+    dev = img.device
+    m = hmat_inv.to(device=dev, dtype=torch.float32)
+    ys, xs = torch.meshgrid(
+        torch.arange(oh, device=dev, dtype=torch.float32),
+        torch.arange(ow, device=dev, dtype=torch.float32), indexing="ij")
+    xs, ys = xs.reshape(-1), ys.reshape(-1)
+    sxyz = [fma_f32(m[r, 1], ys, m[r, 0] * xs) + m[r, 2] for r in range(3)]
+    sx = sxyz[0] / sxyz[2]
+    sy = sxyz[1] / sxyz[2]
+
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = sx - x0
+    fy = sy - y0
+    x0i = to_int32_saturating(x0)
+    y0i = to_int32_saturating(y0)
+
+    flat = img.to(torch.float32).reshape(*img.shape[:-2], h * w)
+
+    def gather(yi, xi):
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)
+        vals = flat.index_select(-1, idx)
+        return torch.where(valid, vals, torch.zeros_like(vals))
+
+    v00 = gather(y0i, x0i)
+    v01 = gather(y0i, x0i + 1)
+    v10 = gather(y0i + 1, x0i)
+    v11 = gather(y0i + 1, x0i + 1)
+    w00 = (1 - fy) * (1 - fx)
+    w01 = (1 - fy) * fx
+    w10 = fy * (1 - fx)
+    w11 = fy * fx
+    out = v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11
+    return out.reshape(*img.shape[:-2], oh, ow)
+
+
+# --------------------------------------------------------------------------
+# per-channel histogram fingerprints
+# --------------------------------------------------------------------------
+
+def histogram_scale(bins: int, vmax: float) -> float:
+    """``bins / (vmax + 1)`` rounded to f32, as JAX rounds the weakly
+    typed Python scalar it multiplies an f32 array by."""
+    return float(np.float32(bins / (vmax + 1.0)))
+
+
+def histogram(
+    frames: torch.Tensor,  # (N, C, H, W), values in [0, vmax]
+    *,
+    bins: int,
+    vmax: float = 255.0,
+) -> torch.Tensor:
+    """Returns (N, C, bins) int32 per-channel histograms; a value's bin is
+    ``clip(int32(x * f32(bins / (vmax + 1))), 0, bins - 1)``."""
+    n, c = frames.shape[:2]
+    x = frames.to(torch.float32) * histogram_scale(bins, vmax)
+    v = torch.nan_to_num(torch.trunc(x), nan=0.0)  # int32(NaN) is 0
+    idx = torch.clamp(v, 0, bins - 1).to(torch.int64).reshape(n * c, -1)
+    key = idx + torch.arange(n * c, device=frames.device)[:, None] * bins
+    counts = torch.bincount(key.reshape(-1), minlength=n * c * bins)
+    return counts.reshape(n, c, bins).to(torch.int32)

@@ -57,6 +57,7 @@ def transcode(
     if on_cpu(iframe):
         if residuals.device != iframe.device:
             raise ValueError("iframe and residuals lie on different devices")
+        _build.count_plain("transcode")
         io, ro = ref.transcode(
             iframe, residuals, q_in=q_in, q_out=q_out, factor=factor,
             lo=lo, hi=hi, vmin=vmin, vmax=vmax)

@@ -15,7 +15,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels import delta_codec, transcode
+from repro_torch.kernels import delta_codec, histogram, transcode, warp
 
 # the suite runs in several worker processes at once: one intra-op
 # thread each keeps torch's CPU thread pools from oversubscribing cores
@@ -201,6 +201,58 @@ def test_wrappers_raise_off_cpu_and_cuda():
                             resid_dtype=torch.int8)
 
 
+def test_wrappers_on_cpu_count_plain_calls_not_launches():
+    """Each wrapper's CPU path runs the plain version and counts one
+    plain call, the counterpart of the launch a CUDA tensor counts."""
+    x = torch.from_numpy(_frames(22, 3, 3, 9, 14))
+    hinv = np.eye(3, dtype=np.float32)
+    launches = _build.launch_counts()
+    _build.reset_plain_counts()
+    it, rt = ops.delta_encode(x, q=2.0, lo=-128, hi=127, vmin=0, vmax=255,
+                              resid_dtype=torch.int8)
+    ops.delta_decode(it, rt, q=2.0, vmin=0, vmax=255)
+    ops.transcode(it, rt, q_in=2.0, q_out=8.0, factor=1, lo=-128, hi=127,
+                  vmin=0, vmax=255, resid_dtype=torch.int8)
+    assert torch.equal(ops.warp(x, hinv), ref.warp(x, torch.from_numpy(hinv)))
+    assert torch.equal(ops.warp(x[0].to(torch.uint8), hinv, out_shape=(4, 5)),
+                       ref.warp(x[0], torch.from_numpy(hinv), (4, 5)))
+    assert torch.equal(ops.histogram(x, bins=8), ref.histogram(x, bins=8))
+    assert _build.plain_counts() == {
+        "delta_encode": 1, "delta_decode": 1, "transcode": 1, "warp": 2,
+        "histogram": 1}
+    assert _build.launch_counts() == launches
+    _build.reset_plain_counts()
+    assert _build.plain_counts() == {}
+
+
+def test_warp_and_histogram_raise_off_cpu_and_cuda():
+    x = torch.empty((2, 3, 4, 4), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        warp.warp(x, np.eye(3, dtype=np.float32))
+    with pytest.raises(ValueError, match="device"):
+        histogram.histogram(x, bins=16)
+
+
+def test_warp_and_histogram_reject_bad_shapes():
+    x = torch.zeros((2, 4, 4))
+    with pytest.raises(ValueError, match="3x3"):
+        ops.warp(x, np.eye(2, dtype=np.float32))
+    with pytest.raises(ValueError, match="N,C,H,W"):
+        ops.warp(x[0], np.eye(3, dtype=np.float32))
+    with pytest.raises(ValueError, match="N,C,H,W"):
+        ops.histogram(x, bins=16)
+    with pytest.raises(ValueError, match="bins"):
+        ops.histogram(x[None], bins=0)
+
+
+def test_warp_takes_a_float64_homography_rounded_to_f32():
+    h = np.array([[1.0 + 1e-9, 0.1, 0.3], [0.0, 1.0, 0.2], [0.0, 0.0, 1.0]])
+    x = torch.from_numpy(_frames(23, 1, 3, 6, 7))[0]
+    assert torch.equal(ops.warp(x, h), ops.warp(x, h.astype(np.float32)))
+    assert torch.equal(ops.warp(x, torch.from_numpy(h)),
+                       ops.warp(x, h.astype(np.float32)))
+
+
 def test_transcode_rejects_factor_not_dividing_shape():
     x = torch.zeros((3, 10, 12))
     with pytest.raises(ValueError, match="divide"):
@@ -227,3 +279,4 @@ def test_build_is_lazy_and_keyed_by_sources():
     assert d.parent.parent.name == "build"
     assert len(d.name) == 16
     assert {p.stem for p in _build.CSRC_DIR.glob("*.cu")} == set(_build.SOURCES)
+    assert {"warp", "histogram"} <= set(_build.SOURCES)
