@@ -16,7 +16,12 @@ prints:
   device time the profiler saw in it (kernels and copies), the idle
   share, and the device time by name;
 - the same for one CUDA run of ``chip_smoke.py``'s joint path (two
-  1080p camera pairs written, jointly compressed and read back).
+  1080p camera pairs written, jointly compressed and read back);
+- the same for one CUDA run of ``chip_smoke.py``'s serving path (the
+  paged-KV engine over Qwen3-32B at full width, 16 layers, eight
+  requests), with the device time split into the paged-attention
+  kernel, the bf16 matrix products, the pool's indexed writes and the
+  rest, and the host's share (wall time the device was idle).
 
 Every time stands beside the card's ``nvidia-smi`` name and power
 limit.  It checks nothing that ``chip_smoke.py`` does not; it is the
@@ -117,7 +122,40 @@ def main() -> int:
             wall, busy, by_name = device_busy(
                 lambda: drive(os.path.join(d, "vss"), data, "cuda"))
         report(label, wall, busy, by_name, card)
+    cfg, model = chip_smoke.serving_model()
+    prompts = chip_smoke.serving_prompts(cfg.vocab_size)
+    chip_smoke.drive_serving(model, cfg, prompts)  # warm up cuBLAS, caches
+    wall, busy, by_name = device_busy(
+        lambda: chip_smoke.drive_serving(model, cfg, prompts))
+    report("serving path", wall, busy, by_name, card)
+    if busy is not None:
+        split = serving_split(by_name)
+        print("serving device time by part: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in split.items())
+              + f"; host (device idle) {wall - busy:.4f} s of {wall:.4f} s"
+              f" [{card}]")
     return 0
+
+
+# kernel-name fragments of each part of a serving run's device time
+SERVING_PARTS = (
+    ("paged attention", ("paged_attention_kernel",)),
+    ("bf16 GEMMs", ("gemm", "xmma", "cutlass", "nvjet", "splitk")),
+    ("pool writes", ("index_put", "indexing", "index_elementwise")),
+)
+
+
+def serving_split(by_name):
+    """Device seconds by part; kernels that match no part are "other"
+    (norms, rope, softmax, elementwise, copies)."""
+    out = {part: 0.0 for part, _ in SERVING_PARTS}
+    out["other"] = 0.0
+    for name, secs in by_name.items():
+        low = name.lower()
+        part = next((p for p, frags in SERVING_PARTS
+                     if any(f in low for f in frags)), "other")
+        out[part] += secs
+    return out
 
 
 def report(label, wall, busy, by_name, card) -> None:
@@ -127,7 +165,7 @@ def report(label, wall, busy, by_name, card) -> None:
         return
     print(f"profiled cuda {label}: {wall:.3f} s wall, device busy"
           f" {busy:.3f} s, idle share {1 - busy / wall:.4f} [{card}]")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(f"device time by name ({label}): " + "; ".join(
         f"{k[:60]} {v * 1e3:.2f} ms" for k, v in top))
 

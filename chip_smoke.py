@@ -39,7 +39,30 @@ and PyTorch built for CUDA.  In order it:
    plain versions; pair A's sides must read back at 24 dB or more.  It
    prints each step's time and the compress steps' split (decode, host
    features, warp, histogram, segment encode);
-6. prints one JSON line of per-kernel numbers, the card line, and the
+6. holds the serving path's kernels against their plain versions on the
+   card: the paged decode attention at Qwen3-32B's decode shape (8
+   sequences of 1 to 4096 tokens, 64 query and 8 KV heads of 128, pages
+   of 16) in bf16 and f32, at Phi-3-mini's (32 and 32 heads of 96) and
+   at a small ragged shape (absent pages, pages shared between rows,
+   lengths at 1 and on a page boundary): f32 within 1e-4, bf16 within
+   one bf16 ulp of the plain version's f32 result; the per-frame squared
+   error at thirty 1080p planes in uint8 and f32 and at a ragged shape,
+   within rtol 1e-5.  It times both, and a gather of the pages followed
+   by ``scaled_dot_product_attention`` as a yardstick.  ``ops.psnr`` of
+   the main path's whole-clip read against its source must agree with
+   its plain version and with ``exact_mse`` frame by frame;
+7. drives the serving engine (``ServingEngine``, a paged KV pool of 1024
+   pages of 16 tokens) over a Qwen3-32B-width model cut to 16 of its 64
+   layers, with random weights drawn on the card from seed 0: seven
+   prompts of 128 to 1024 tokens (two share their first 512), 32 new
+   tokens each, then a prompt identical to one of them.  Every token
+   must be what the model's dense greedy path (``prefill`` and
+   ``decode_step``, no kernel) picks when fed the same tokens, or a near
+   tie there (reported); the dedup of the shared and identical prompts
+   must be what the pool's page arithmetic predicts; the paged attention
+   must launch once per layer and decode round; it prints prefill time
+   per request, time to first token, and decode-round times;
+8. prints one JSON line of per-kernel numbers, the card line, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises, and the script exits non-zero without the
@@ -47,6 +70,7 @@ result line.  It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sqlite3
@@ -62,17 +86,22 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 import torch  # noqa: E402
 
+import torch.nn.functional as F  # noqa: E402
+
 from repro_torch import codec  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import features, fingerprint, joint  # noqa: E402
 from repro_torch.core.config import VSSConfig  # noqa: E402
 from repro_torch.core.deferred import is_wrapped, unwrap_bytes  # noqa: E402
-from repro_torch.core.quality import exact_psnr  # noqa: E402
+from repro_torch.core.quality import exact_mse, exact_psnr  # noqa: E402
 from repro_torch.core.store import VSS  # noqa: E402
 from repro_torch.data.video import (  # noqa: E402
     synthesize_overlapping_pair,
     synthesize_road,
 )
 from repro_torch.kernels import _build, delta_codec, ops, ref  # noqa: E402
+from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.serving import ServingEngine  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the f32 rate outside the
 # tensor cores (the kernels do scalar f32 work).
@@ -100,9 +129,13 @@ KERNELS = {
              "src/repro/kernels/warp.py:71"),
     "histogram": ("src/repro_torch/csrc/histogram.cu",
                   "src/repro/kernels/histogram.py:51"),
+    "mse": ("src/repro_torch/csrc/mse.cu", "src/repro/kernels/mse.py:42"),
+    "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                        "src/repro/kernels/paged_attention.py:87"),
 }
 MAIN_KERNELS = ("delta_encode", "delta_decode", "transcode")
 JOINT_KERNELS = ("warp", "histogram")
+SERVING_KERNELS = ("paged_attention", "mse")
 FRAME_1080P = (3, 1080, 1920)  # (C, H, W): one frame of the joint path
 # Z = 1 - x / 1024 is exactly 0 at column 1024 (X / Z = inf, and 0 / 0 at
 # the origin's row): the zero fill and the saturating int32 conversion
@@ -691,6 +724,436 @@ def check_joint(gpu, cpu, cams) -> None:
             raise AssertionError(f"joint read {name}: {p:.2f} dB < 24")
 
 
+# -- the serving path's kernels: paged decode attention and the squared
+# error behind PSNR ------------------------------------------------------
+
+# Qwen3-32B decode: 8 sequences, 64 query / 8 KV heads of 128, pages of 16
+QWEN3_DECODE = dict(b=8, hq=64, hkv=8, d=128, page=16)
+QWEN3_LENS = (1, 4096)  # the 8 lengths are spread evenly over this range
+PHI3_DECODE = dict(b=4, hq=32, hkv=32, d=96, page=16)
+MSE_1080P = (30, 1080, 1920)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x|, taken no lower than at 2**-7 (an absolute floor
+    of 2**-14, under the f32 tolerance of 1e-4): nearer 0 a bf16 ulp is
+    finer than the rounding of the f32 sums themselves."""
+    m = x.abs().to(torch.float32).clamp(min=2.0 ** -7)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def paged_case(rng, b, hq, hkv, d, page, lens, device, extra_pages=0,
+               bt=None):
+    """Random q and pages (f32) and a block table giving each sequence
+    its own scattered pages (or ``bt``), for lengths ``lens``."""
+    lens = np.asarray(lens, np.int64)
+    need = -(-lens // page)
+    maxp = int(need.max()) if bt is None else len(bt[0])
+    n_pages = int(need.sum()) + extra_pages if bt is None else int(
+        np.max(bt)) + 1 + extra_pages
+    if bt is None:
+        perm = rng.permutation(n_pages)
+        bt = np.full((b, maxp), -1, np.int64)
+        at = 0
+        for i, n in enumerate(need):
+            bt[i, :n] = perm[at:at + n]
+            at += n
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+    q = t(rng.standard_normal((b, hq, d), dtype=np.float32))
+    kp = t(rng.standard_normal((n_pages, page, hkv, d), dtype=np.float32))
+    vp = t(rng.standard_normal((n_pages, page, hkv, d), dtype=np.float32))
+    return q, kp, vp, t(bt, torch.int32), t(lens, torch.int32)
+
+
+def valid_mask(bt: torch.Tensor, sl: torch.Tensor, page: int):
+    """(B, maxp * page): the positions whose K/V the attention reads, below
+    the length and on a page that is not absent."""
+    pos = torch.arange(bt.shape[1] * page, device=bt.device)
+    return (pos[None] < sl[:, None].long()) & (bt >= 0).repeat_interleave(
+        page, dim=1)
+
+
+def paged_bound(q, kp, bt, sl):
+    _p, page, hkv, d = kp.shape
+    n = int(valid_mask(bt, sl, page).sum())
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * n * hkv * d * kp.element_size())
+    # per valid position and query head: D multiplies and adds for the
+    # score, D for the weighted sum of V
+    return _bound(nbytes, 4 * q.shape[1] * d * n)
+
+
+def mse_bound(a):
+    return _bound(2 * a.numel() * a.element_size(), 3 * a.numel())
+
+
+def gather_sdpa(q, kp, vp, bt, sl):
+    """The yardstick: gather each sequence's pages, then PyTorch's fused
+    attention over them with a mask (GQA)."""
+    b, hq, d = q.shape
+    _p, page, hkv, _ = kp.shape
+    maxp = bt.shape[1]
+    idx = bt.clamp(min=0).long()
+    k = kp[idx].reshape(b, maxp * page, hkv, d).transpose(1, 2)
+    v = vp[idx].reshape(b, maxp * page, hkv, d).transpose(1, 2)
+    mask = valid_mask(bt, sl, page)
+    return F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask[:, None, None],
+        scale=ref.decode_scale(d), enable_gqa=True)[:, :, 0]
+
+
+def _check_paged(what, q, kp, vp, bt, sl) -> float:
+    """Kernel against the plain version on the same inputs: f32 within
+    1e-4, bf16 within one bf16 ulp of the plain f32 result; NaN (an empty
+    row) in the same places.  Returns max |d| against the f32 result."""
+    k = ops.paged_decode_attention(q, kp, vp, bt, sl)
+    p32 = ref.paged_decode_attention(q.float(), kp.float(), vp.float(), bt,
+                                     sl)
+    if not torch.equal(torch.isnan(k), torch.isnan(p32)):
+        print(f"  paged_attention {what:44s} NaN in other places FAIL")
+        raise AssertionError(f"paged_attention {what}: NaN in other places")
+    kf, pf = torch.nan_to_num(k.float()), torch.nan_to_num(p32)
+    err = float((kf - pf).abs().max())
+    if k.dtype == torch.float32:
+        ok, tol = err <= 1e-4, "atol 1e-4"
+    else:
+        p16 = pf.to(torch.bfloat16).float()
+        ulps = float(((kf - p16).abs() / bf16_ulp(p16)).max())
+        ok, tol = ulps <= 1.0, f"{ulps:g} bf16 ulp"
+    print(f"  paged_attention {what:44s} max|d|={err:.3g} ({tol})"
+          f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"paged_attention {what}: kernel != plain"
+                             f" ({tol}, max|d|={err})")
+    return err
+
+
+def check_serving_kernels(device: str, reps: int, seed: int = 0):
+    """Hold the paged attention and the squared-error kernel against their
+    plain versions at the serving and quality shapes; time both at the
+    shapes that matter (Qwen3-32B decode over 1 to 4096 tokens in bf16;
+    thirty f32 1080p planes), and the gather + SDPA yardstick."""
+    rng = np.random.default_rng(seed)
+    res = {"paged_attention": {"max_abs_err": 0.0},
+           "mse": {"max_abs_err": 0.0}}
+    qwen_lens = np.linspace(*QWEN3_LENS, QWEN3_DECODE["b"]).astype(np.int64)
+    f32 = paged_case(rng, lens=qwen_lens, device=device, extra_pages=64,
+                     **QWEN3_DECODE)
+    bf = tuple(x.to(torch.bfloat16) if x.is_floating_point() else x
+               for x in f32)
+    phi = paged_case(rng, lens=[1, 700, 1600, 2048], device=device,
+                     **PHI3_DECODE)
+    small = paged_case(rng, b=4, hq=4, hkv=2, d=64, page=16, lens=[1, 16, 33,
+                       47], device=device,
+                       bt=[[0, -1, 2, 5], [1, 3, -1, -1], [2, 4, 0, -1],
+                           [2, -1, 4, 5]])
+    cases = (
+        ("qwen3 (8,64,128) kv 8 L 1..4096 f32", f32),
+        ("qwen3 (8,64,128) kv 8 L 1..4096 bf16", bf),
+        ("phi3 (4,32,96) kv 32 L 1..2048 f32", phi),
+        ("phi3 (4,32,96) kv 32 L 1..2048 bf16",
+         tuple(x.to(torch.bfloat16) if x.is_floating_point() else x
+               for x in phi)),
+        ("ragged (4,4,64) kv 2 absent/shared pages f32", small),
+        ("ragged (4,4,64) kv 2 absent/shared pages bf16",
+         tuple(x.to(torch.bfloat16) if x.is_floating_point() else x
+               for x in small)),
+    )
+    for what, args in cases:
+        res["paged_attention"]["max_abs_err"] = max(
+            res["paged_attention"]["max_abs_err"], _check_paged(what, *args))
+    yard = gather_sdpa(*bf)
+    p32 = ref.paged_decode_attention(*(x.float() if x.is_floating_point()
+                                       else x for x in bf))
+    res["sdpa_err"] = float((yard.float() - p32).abs().max())
+    res["paged_attention"].update(
+        ms=time_ms(lambda: ops.paged_decode_attention(*bf), reps),
+        plain_ms=time_ms(lambda: ref.paged_decode_attention(*bf), reps),
+        shape=[*bf[0].shape, f"kv {QWEN3_DECODE['hkv']}",
+               f"L {int(qwen_lens[0])}..{int(qwen_lens[-1])}"],
+        dtype="bf16")
+    res["paged_attention"]["bound_ms"], res["paged_attention"]["bound_by"] = \
+        paged_bound(*bf[:2], *bf[3:])
+    res["sdpa_ms"] = time_ms(lambda: gather_sdpa(*bf), reps)
+    res["paged_attention_f32_ms"] = time_ms(
+        lambda: ops.paged_decode_attention(*f32), reps)
+    del f32, bf, phi, small
+
+    planes = {}
+    for dt in (torch.uint8, torch.float32):
+        a = torch.from_numpy(rng.integers(0, 256, MSE_1080P, dtype=np.uint8))
+        b = torch.from_numpy(np.clip(a.numpy().astype(np.int16)
+                                     + rng.integers(-9, 10, MSE_1080P), 0,
+                                     255).astype(np.uint8))
+        planes[dt] = (a.to(device).to(dt), b.to(device).to(dt))
+    ragged = torch.from_numpy(rng.standard_normal((5, 17, 130),
+                                                  dtype=np.float32)).to(device)
+    checks = (("(30,1080,1920) uint8", *planes[torch.uint8]),
+              ("(30,1080,1920) f32", *planes[torch.float32]),
+              ("ragged (5,17,130) f32", ragged, ragged * 0.5 + 1.0),
+              ("ragged (5,17,130) uint8", planes[torch.uint8][0][:5, :17, :130]
+               .contiguous(), planes[torch.uint8][1][:5, :17, :130]
+               .contiguous()))
+    for what, a, b in checks:
+        k = ops.mse_sum(a, b)
+        p = ref.mse_sum(a, b)
+        rel = float(((k - p).abs() / p.abs().clamp(min=1e-30)).max())
+        err = float((k - p).abs().max())
+        ok = rel <= 1e-5
+        print(f"  mse            {what:44s} max rel {rel:.3g} (rtol 1e-5)"
+              f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"mse {what}: kernel != plain (rel {rel})")
+        res["mse"]["max_abs_err"] = max(res["mse"]["max_abs_err"], err)
+    a, b = planes[torch.float32]
+    res["mse"].update(
+        ms=time_ms(lambda: ops.mse_sum(a, b), reps),
+        plain_ms=time_ms(lambda: ref.mse_sum(a, b), reps),
+        shape=list(MSE_1080P), dtype="f32")
+    res["mse"]["bound_ms"], res["mse"]["bound_by"] = mse_bound(a)
+    a8, b8 = planes[torch.uint8]
+    res["mse_uint8_ms"] = time_ms(lambda: ops.mse_sum(a8, b8), reps)
+    res["mse_uint8_bound_ms"] = mse_bound(a8)[0]
+    return res
+
+
+def psnr_of_read(whole: np.ndarray, clip: np.ndarray, device="cuda"):
+    """``ops.psnr`` of the whole-clip read against its source, frames as
+    (T, H, W*C) uint8 on the card, with the launch counts set to 0 just
+    before it: it must agree with the plain version (rtol 1e-5) and with
+    ``exact_mse`` of each frame.  Returns (psnr per frame, launches)."""
+    t, h, w, c = clip.shape
+    a = torch.from_numpy(whole.reshape(t, h, w * c)).to(device)
+    b = torch.from_numpy(clip.reshape(t, h, w * c)).to(device)
+    ops.reset_launch_counts()
+    got = ops.psnr(a, b)
+    m = ops.mse(a, b)
+    sync(device)
+    launches = ops.launch_counts()
+    plain = ops.psnr_from_mse(ref._div(ref.mse_sum(a, b), float(h * w * c)))
+    exact = torch.tensor([exact_mse(whole[i:i + 1], clip[i:i + 1])
+                          for i in range(t)], dtype=torch.float32)
+    for name, x, y in (("psnr vs plain", got, plain),
+                       ("mse vs exact_mse", m.cpu(), exact)):
+        rel = float(((x - y).abs() / y.abs().clamp(min=1e-30)).max())
+        print(f"  {name} of the whole read: max rel {rel:.3g} (rtol 1e-5)")
+        if rel > 1e-5:
+            raise AssertionError(f"{name}: max rel {rel} > 1e-5")
+    if launches != {"mse": 2}:
+        raise AssertionError(f"psnr and mse of the read launched {launches},"
+                             " expected mse 2")
+    return got.cpu().numpy(), launches
+
+
+# -- the serving path: the paged-KV engine at Qwen3-32B width -------------
+
+SERVING_LAYERS = 16  # of Qwen3-32B's 64: the depth cut
+SERVING_NEW = 32
+SERVING_LENS = (1024, 768, 640, 896, 128, 300, 1000)
+SHARED_PREFIX = (0, 3, 512)  # requests 0 and 3 share their first 512 tokens
+TWIN_OF = 5  # submitted again, identical, after its twin finished
+# Largest paged-vs-dense logit difference allowed at any step: above the
+# sound kernel's 0.0844 at this configuration, below what the planted
+# faults give (``check_limit_catches_faults``).
+NEAR_TIE_LIMIT = 0.15
+
+
+def serving_prompts(vocab: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in SERVING_LENS]
+    a, b, n = SHARED_PREFIX
+    prompts[b][:n] = prompts[a][:n]
+    if prompts[b][n] == prompts[a][n]:
+        prompts[b][n] = (prompts[a][n] + 1) % vocab
+    return prompts
+
+
+def drive_serving(model, cfg, prompts):
+    """Serve the prompts on the card: all but the twin at once, then the
+    twin.  The launch counts are set to 0 just before and read just
+    after.  Each decode round's logits (kept on the card) and wall time,
+    and each prefill's, are recorded by wrapping the engine's methods."""
+    eng = ServingEngine(cfg, model, page_size=16, num_pages=1024,
+                        max_batch=8)
+    rec = {"logits": {}, "round_s": [], "prefill_s": []}
+    real_decode, real_round, real_prefill = (
+        eng._decode, eng._decode_round, eng._prefill)
+
+    def decode(*args):
+        rids = [a.req.rid for a in eng.active]
+        logits = real_decode(*args)
+        for i, rid in enumerate(rids):
+            rec["logits"].setdefault(rid, []).append(logits[i].clone())
+        return logits
+
+    def decode_round(done):
+        batch = len(eng.active)
+        t0 = time.perf_counter()
+        real_round(done)  # ends in the argmax's copy to the host
+        rec["round_s"].append((time.perf_counter() - t0, batch))
+
+    def prefill(tokens):
+        t0 = time.perf_counter()
+        out = real_prefill(tokens)
+        sync(model.device)
+        rec["prefill_s"].append(time.perf_counter() - t0)
+        return out
+
+    eng._decode, eng._decode_round, eng._prefill = (decode, decode_round,
+                                                    prefill)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new=SERVING_NEW) for p in prompts]
+    done = eng.run()
+    rids.append(eng.submit(prompts[TWIN_OF], max_new=SERVING_NEW))
+    done.update(eng.run())
+    sync(model.device)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = ops.launch_counts()
+    rec["done"] = [done[r] for r in rids]
+    rec["metrics"] = dict(eng.metrics)
+    rec["pages_in_use"] = eng.pool.pages_in_use
+    return rec
+
+
+def dense_differences(model, prompts, rec, report=True):
+    """Feed the dense greedy path (no kernel) each request's prompt and
+    then the engine's own tokens, and hold each step's logits against the
+    engine's paged ones.  Raises if an engine token is not the argmax of
+    its paged logits.  A token that is not the dense argmax is a near
+    tie, printed when ``report``: it cannot fail, since the token is the
+    paged argmax and so the dense margin is at most twice the logit
+    difference.  Returns the largest paged-vs-dense logit difference,
+    its (request, step), and the near ties."""
+    all_prompts = list(prompts) + [prompts[TWIN_OF]]
+    worst, at, ties = 0.0, None, []
+    for ri, (req, prompt) in enumerate(zip(rec["done"], all_prompts)):
+        if req.prompt != prompt or len(req.out) != SERVING_NEW:
+            raise AssertionError(f"request {ri}: wrong prompt or"
+                                 f" {len(req.out)} tokens")
+        paged = rec["logits"][req.rid]
+        cache = lm.init_cache(model, 1, len(prompt) + SERVING_NEW)
+        lm.prefill(model, torch.tensor([prompt[:-1]], device=model.device),
+                   cache)
+        cur = prompt[-1]
+        for step, tok in enumerate(req.out):
+            dense, cache = lm.decode_step(
+                model, cache, torch.tensor([[cur]], device=model.device))
+            dense = dense[0, 0].float()
+            mine = paged[step].float()
+            if tok != int(mine.argmax()):
+                raise AssertionError(
+                    f"request {ri} step {step}: engine token {tok} is not"
+                    f" the argmax {int(mine.argmax())} of its logits")
+            d = float((mine - dense).abs().max())
+            if d > worst:
+                worst, at = d, (ri, step)
+            top = int(dense.argmax())
+            if tok != top:
+                margin = float(dense[top] - dense[tok])
+                ties.append((ri, step, tok, top, margin, d))
+                if report:
+                    print(f"  near tie: request {ri} step {step}: engine"
+                          f" {tok}, dense {top}, dense margin {margin:.4f},"
+                          f" logit difference {d:.4f}; continuing"
+                          " teacher-forced")
+            cur = tok
+        del cache
+    return worst, at, ties
+
+
+def check_serving(model, cfg, prompts, rec):
+    """(a) every engine token is the argmax of its paged logits, and
+    those are within ``NEAR_TIE_LIMIT`` of the dense greedy path's, fed
+    the same tokens (``dense_differences``); (b) dedup as the page
+    arithmetic says; (c) one paged-attention launch per layer and decode
+    round; (d) the pool within its pages.  Returns the largest
+    paged-vs-dense logit difference and the near ties."""
+    reqs = rec["done"]
+    all_prompts = list(prompts) + [prompts[TWIN_OF]]
+    worst, at, ties = dense_differences(model, prompts, rec)
+    if worst > NEAR_TIE_LIMIT:
+        raise AssertionError(f"request {at[0]} step {at[1]}: paged and dense"
+                             f" logits differ by {worst} > {NEAR_TIE_LIMIT}")
+    ps = 16
+    a, b, n = SHARED_PREFIX
+    want = [0] * len(all_prompts)
+    want[b] = min(n, len(prompts[a]) - 1) // ps
+    want[-1] = (len(prompts[TWIN_OF]) - 1) // ps
+    got = [r.dedup_pages for r in reqs]
+    print(f"  dedup pages per request: {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"dedup pages {got}, expected {want}")
+    steps = rec["metrics"]["decode_steps"]
+    want_l = {"paged_attention": steps * cfg.num_layers}
+    print(f"  launches in the serving run: {rec['launches']} ({steps} decode"
+          f" rounds x {cfg.num_layers} layers)")
+    if rec["launches"] != want_l:
+        raise AssertionError(f"serving launched {rec['launches']}, expected"
+                             f" {want_l}")
+    if not 0 < rec["pages_in_use"] <= 1024:
+        raise AssertionError(f"pages in use {rec['pages_in_use']}")
+    return worst, ties
+
+
+# Planted faults: the paged attention's lengths off by one either way.
+# The first is the engine passing seq_lens where it means new_len.
+FAULTS = (("seq_lens for new_len", -1), ("new_len + 1", 1))
+
+
+def check_limit_catches_faults(model, cfg, prompts):
+    """Serve the prompts again once per planted fault, the wrapper's
+    lengths shifted; each run's largest paged-vs-dense logit difference
+    must exceed ``NEAR_TIE_LIMIT``, or the limit could not see such a
+    fault.  Returns the readings."""
+    real = ops.paged_decode_attention
+    readings = {}
+    try:
+        for name, shift in FAULTS:
+            ops.paged_decode_attention = (
+                lambda q, k, v, bt, sl, _s=shift: real(q, k, v, bt, sl + _s))
+            rec = drive_serving(model, cfg, prompts)
+            worst, at, ties = dense_differences(model, prompts, rec,
+                                                report=False)
+            readings[name] = worst
+            print(f"  planted fault {name}: largest logit difference"
+                  f" {worst:.4f} at request {at[0]} step {at[1]},"
+                  f" {len(ties)} tokens off the dense argmax")
+            if worst <= NEAR_TIE_LIMIT:
+                raise AssertionError(f"planted fault {name} gives {worst},"
+                                     f" within the limit {NEAR_TIE_LIMIT}")
+            del rec
+    finally:
+        ops.paged_decode_attention = real
+    return readings
+
+
+def serving_model(cfg=None, device="cuda"):
+    """Qwen3-32B at full width, cut to ``SERVING_LAYERS`` layers, with
+    weights drawn on ``device`` from seed 0."""
+    if cfg is None:
+        cfg = dataclasses.replace(get_config("qwen3-32b"),
+                                  num_layers=SERVING_LAYERS)
+    t0 = time.perf_counter()
+    model = lm.init_model(cfg, device=device,
+                          generator=torch.Generator(device).manual_seed(0))
+    sync(device)
+    n = sum(p.numel() for p in model.parameters())
+    gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    print(f"  {cfg.name} at full width cut to {cfg.num_layers} layers:"
+          f" {n / 1e9:.3f} B parameters, {gb:.2f} GB of weights, drawn in"
+          f" {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, model
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -727,10 +1190,19 @@ def main() -> int:
     knum = check_kernels("cuda", (("1080p", GOP_1080P), ("ragged", RAGGED)),
                          reps=20)
     knum.update(check_joint_kernels("cuda", reps=20))
+    print("serving kernels vs plain versions on the card:", flush=True)
+    snum = check_serving_kernels("cuda", reps=20)
+    knum.update({k: snum[k] for k in SERVING_KERNELS})
     for name, r in knum.items():
         print(f"  {name:12s} at {r['shape']} {r['dtype']}: kernel"
               f" {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound"
               f" {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    print(f"  yardstick: gather + scaled_dot_product_attention at the same"
+          f" bf16 qwen3 shape {snum['sdpa_ms']:.4f} ms (max|d| vs plain"
+          f" {snum['sdpa_err']:.3g}); paged_attention in f32"
+          f" {snum['paged_attention_f32_ms']:.4f} ms; mse of uint8 planes"
+          f" {snum['mse_uint8_ms']:.4f} ms (bound"
+          f" {snum['mse_uint8_bound_ms']:.4f} ms) [{card}]")
 
     print("main path: VSS write/read of a 1080p 90-frame clip", flush=True)
     clip = synthesize_road(90, width=1920, height=1080, seed=0)
@@ -740,6 +1212,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d_cpu:
         cpu = drive_store(os.path.join(d_cpu, "vss"), clip, "cpu")
     compare_runs(gpu, cpu, clip)
+    psnr, psnr_launches = psnr_of_read(gpu["reads"]["whole clip as rgb"][0],
+                                       clip)
+    print(f"  psnr of the whole read vs source: {float(psnr.min()):.2f} to"
+          f" {float(psnr.max()):.2f} dB over {len(psnr)} frames; launches"
+          f" {psnr_launches}")
     n = clip.shape[0]
     print(f"  write 90 frames as hevc: {gpu['secs']['write']:.3f} s,"
           f" {n / gpu['secs']['write']:.1f} frames/s [{card}]")
@@ -778,9 +1255,44 @@ def main() -> int:
                   + ", ".join(f"{k} {v:.3f} s" for k, v in split.items())
                   + f", other {total - sum(split.values()):.3f} s [{card}]")
 
+    print(f"serving path: {SERVING_LAYERS} layers of qwen3-32b, paged KV"
+          f" pool, {len(SERVING_LENS) + 1} requests", flush=True)
+    cfg, model = serving_model()
+    prompts = serving_prompts(cfg.vocab_size)
+    srec = drive_serving(model, cfg, prompts)
+    worst, ties = check_serving(model, cfg, prompts, srec)
+    print(f"  largest paged-vs-dense logit difference {worst:.4f} (limit"
+          f" {NEAR_TIE_LIMIT}); {len(ties)} near ties, where the engine's"
+          " token is not the dense argmax")
+    for i, req in enumerate(srec["done"]):
+        print(f"  request {i}: prompt {len(req.prompt)} tokens, dedup"
+              f" {req.dedup_pages} pages, time to first token"
+              f" {req.first_token_s - req.submitted_s:.3f} s, done after"
+              f" {req.done_s - req.submitted_s:.3f} s [{card}]")
+    print("  prefill s per prefilled request: " + ", ".join(
+        f"{x:.4f}" for x in srec["prefill_s"]) + f" [{card}]")
+    rounds = srec["round_s"]
+    for batch in sorted({b for _t, b in rounds}, reverse=True):
+        ts = [t for t, b in rounds if b == batch]
+        print(f"  decode rounds at batch {batch}: {len(ts)}, median"
+              f" {np.median(ts) * 1e3:.2f} ms ({batch / np.median(ts):.1f}"
+              f" tokens/s) [{card}]")
+    gen = sum(b for _t, b in rounds)
+    secs = sum(t for t, _b in rounds)
+    print(f"  decode: {gen} tokens in {len(rounds)} rounds, {secs:.3f} s of"
+          f" rounds ({gen / secs:.1f} tokens/s); whole run"
+          f" {srec['wall_s']:.3f} s; metrics {srec['metrics']},"
+          f" pages in use {srec['pages_in_use']} [{card}]")
+    serving_launches = srec["launches"]
+    del srec
+    check_limit_catches_faults(model, cfg, prompts)
+    del model
+
     kernels = []
     paths = dict(gpu["launches"])
     paths.update({f"joint {k}": v for k, v in jgpu["launches"].items()})
+    paths["psnr of the whole read"] = psnr_launches
+    paths["serving run"] = serving_launches
     for name, (source, replaces) in KERNELS.items():
         r = knum[name]
         by_path = {p: c[name] for p, c in paths.items() if name in c}

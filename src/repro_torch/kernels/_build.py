@@ -29,7 +29,8 @@ from typing import Dict, Iterable, List
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent.parent / "build" / "repro_torch"
-SOURCES = ("delta_codec", "transcode", "warp", "histogram")
+SOURCES = ("delta_codec", "transcode", "warp", "histogram", "paged_attention",
+           "mse")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",

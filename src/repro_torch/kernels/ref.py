@@ -214,3 +214,62 @@ def histogram(
     key = idx + torch.arange(n * c, device=frames.device)[:, None] * bins
     counts = torch.bincount(key.reshape(-1), minlength=n * c * bins)
     return counts.reshape(n, c, bins).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# fused per-frame MSE (sum of squared error; mean taken by caller)
+# --------------------------------------------------------------------------
+
+def mse_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (N, H, W) -> (N,) f32 sums of squared differences."""
+    d = a.to(torch.float32) - b.to(torch.float32)
+    return (d * d).sum(dim=(1, 2))
+
+
+# --------------------------------------------------------------------------
+# paged decode attention (GOP-paged KV) — serving hot-spot
+# --------------------------------------------------------------------------
+
+def decode_scale(d: int) -> float:
+    """``1 / sqrt(d)`` as the reference takes it: the square root in f32,
+    then the quotient in f32."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pages: torch.Tensor,  # (P, page, Hkv, D)
+    v_pages: torch.Tensor,  # (P, page, Hkv, D)
+    block_table: torch.Tensor,  # (B, max_pages) int32, -1 = absent
+    seq_lens: torch.Tensor,  # (B,) int32 — valid KV length per sequence
+) -> torch.Tensor:
+    """Single-token decode attention over block-table-paged KV, with the
+    scale ``decode_scale(D)``.
+
+    Returns (B, Hq, D) in q's dtype. Hq must be a multiple of Hkv (GQA).
+    A row with no valid position is NaN, as the softmax over nothing but
+    -inf gives.
+    """
+    b, hq, d = q.shape
+    p, page, hkv, _ = k_pages.shape
+    groups = hq // hkv
+    scale = decode_scale(d)
+    max_pages = block_table.shape[1]
+
+    # Gather each sequence's KV: (B, max_pages*page, Hkv, D)
+    safe_table = torch.clamp(block_table.long(), min=0)
+    k = k_pages[safe_table].reshape(b, max_pages * page, hkv, d)
+    v = v_pages[safe_table].reshape(b, max_pages * page, hkv, d)
+    pos = torch.arange(max_pages * page, device=q.device)[None, :]  # (1, L)
+    valid = (pos < seq_lens[:, None]) & (
+        torch.repeat_interleave(block_table >= 0, page, dim=1)
+    )
+
+    qg = q.reshape(b, hkv, groups, d).to(torch.float32)
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    logits = torch.einsum("bhgd,blhd->bhgl", qg, kf) * scale
+    logits = torch.where(valid[:, None, None, :], logits, -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgl,blhd->bhgd", probs, vf)
+    return out.reshape(b, hq, d).to(q.dtype)

@@ -1,7 +1,8 @@
 """The port stands alone: ``src/repro_torch`` and the chip scripts import
 neither ``jax`` nor the JAX package ``repro`` (``repro_torch`` is not
-``repro``), the package works with both blocked, and without a card the
-default device raises instead of running on the CPU."""
+``repro``), the package works with both blocked (a store written and
+read, a smoke LM served), and without a card the default device raises
+instead of running on the CPU."""
 import ast
 import os
 import pathlib
@@ -69,6 +70,17 @@ def test_package_works_with_jax_and_reference_blocked(tmp_path):
         vss.write("v", clip, codec="tvc-ll")
         assert np.array_equal(vss.read("v").frames, clip)
         vss.close()
+        import torch
+        from repro_torch.configs import smoke_config
+        from repro_torch.models import model as M
+        from repro_torch.serving import ServingEngine
+        cfg = smoke_config("qwen3-32b")
+        lm = M.init_model(cfg, device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+        eng = ServingEngine(cfg, lm, page_size=8, num_pages=16)
+        rid = eng.submit(list(range(3, 23)), max_new=3)
+        out = eng.run()[rid].out
+        assert len(out) == 3 and eng.metrics["decode_steps"] == 3
         assert not any(k == "jax" or k.startswith("jax.") or k == "repro"
                        or k.startswith("repro.")
                        for k, v in sys.modules.items() if v is not None)

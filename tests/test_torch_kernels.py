@@ -1,9 +1,12 @@
 """The port's kernels on the CPU: their plain PyTorch versions against the
 JAX reference (``repro.kernels.ref``, and the Pallas kernels in interpret
 mode), and the wrappers' dispatch by device.  Inputs are made with numpy
-from a seed and handed to both packages.  Every comparison is exact:
-the codec's values are integers or multiples of 1/16, which f32 holds
-exactly, and rounding is half to even on both sides.
+from a seed and handed to both packages.  Every codec, warp and
+histogram comparison is exact: the codec's values are integers or
+multiples of 1/16, which f32 holds exactly, and rounding is half to even
+on both sides.  Paged attention and the squared-error sums add in
+another order than XLA, so they agree within the reference's own
+tolerances (atol 1e-4 in f32, rtol 1e-5; ``tests/test_kernels.py``).
 
 The CUDA kernels themselves run only on the card; ``chip_smoke.py``
 holds each against its plain version there."""
@@ -14,8 +17,16 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.paged_attention import paged_decode_attention_pallas
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels import delta_codec, histogram, transcode, warp
+from repro_torch.kernels import (
+    delta_codec,
+    histogram,
+    mse,
+    paged_attention,
+    transcode,
+    warp,
+)
 
 # the suite runs in several worker processes at once: one intra-op
 # thread each keeps torch's CPU thread pools from oversubscribing cores
@@ -280,3 +291,209 @@ def test_build_is_lazy_and_keyed_by_sources():
     assert len(d.name) == 16
     assert {p.stem for p in _build.CSRC_DIR.glob("*.cu")} == set(_build.SOURCES)
     assert {"warp", "histogram"} <= set(_build.SOURCES)
+
+
+# -- paged decode attention -----------------------------------------------
+
+# the reference's three shapes (tests/test_kernels.py), then -1 entries,
+# lengths on page boundaries and at 1, pages shared between rows
+PAGED_SHAPES = [(2, 4, 2, 64, 8, 16), (1, 8, 8, 128, 4, 8),
+                (3, 8, 2, 128, 16, 32)]
+
+
+def _paged_inputs(seed, b, hq, hkv, d, p, page, maxp=None, bt=None,
+                  sl=None):
+    rng = np.random.default_rng(seed)
+    maxp = p // 2 if maxp is None else maxp
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    kp = rng.standard_normal((p, page, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((p, page, hkv, d)).astype(np.float32)
+    if bt is None:
+        bt = rng.integers(0, p, (b, maxp))
+    if sl is None:
+        sl = rng.integers(1, maxp * page, (b,))
+    return (q, kp, vp, np.asarray(bt, np.int32), np.asarray(sl, np.int32))
+
+
+RAGGED_PAGED = [
+    # -1 entries inside and at the end of a row; a row on a page boundary
+    dict(b=3, hq=4, hkv=2, d=32, p=6, page=8,
+         bt=[[0, -1, 2, 3], [4, 5, -1, -1], [1, 1, 0, 5]], sl=[32, 16, 1]),
+    # one page shared by every row, lengths at 1, a boundary and past it
+    dict(b=3, hq=6, hkv=3, d=96, p=3, page=16, bt=[[2, 0], [2, 1], [2, 2]],
+         sl=[1, 16, 17]),
+]
+
+
+def _paged_cases():
+    cases = [dict(b=b, hq=hq, hkv=hkv, d=d, p=p, page=page)
+             for b, hq, hkv, d, p, page in PAGED_SHAPES]
+    return cases + RAGGED_PAGED
+
+
+@pytest.mark.parametrize("case", _paged_cases(),
+                         ids=[f"case{i}" for i in range(len(_paged_cases()))])
+def test_paged_attention_plain_matches_reference(case):
+    args = _paged_inputs(7, **case)
+    want = np.asarray(jref.paged_decode_attention(*map(jnp.asarray, args)))
+    got = ops.paged_decode_attention(*map(torch.from_numpy, args))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", _paged_cases(),
+                         ids=[f"case{i}" for i in range(len(_paged_cases()))])
+def test_paged_attention_plain_matches_pallas_interpret(case):
+    args = _paged_inputs(8, **case)
+    want = np.asarray(paged_decode_attention_pallas(
+        *map(jnp.asarray, args), interpret=True))
+    got = ops.paged_decode_attention(*map(torch.from_numpy, args))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+def bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at |x|, taken no lower than at 2**-7: nearer 0 a bf16
+    ulp is finer than the rounding of the f32 sums themselves."""
+    m = np.maximum(np.abs(x.astype(np.float32)), 2.0 ** -7)
+    return 2.0 ** (np.floor(np.log2(m)) - 7)
+
+
+def test_paged_attention_plain_bf16_pages_match_reference():
+    """bf16 pages, as the serving pool holds them: with an f32 query the
+    outputs agree within atol 1e-4; with a bf16 query the bf16 outputs
+    are within one bf16 ulp of the reference's."""
+    q, kp, vp, bt, sl = _paged_inputs(9, 3, 8, 2, 128, 16, 32)
+    kb = jnp.asarray(kp).astype(jnp.bfloat16)
+    vb = jnp.asarray(vp).astype(jnp.bfloat16)
+    kt = torch.from_numpy(kp).to(torch.bfloat16)
+    vt = torch.from_numpy(vp).to(torch.bfloat16)
+    assert np.array_equal(np.asarray(kb.astype(jnp.float32)),
+                          kt.float().numpy())
+    want = np.asarray(jref.paged_decode_attention(
+        jnp.asarray(q), kb, vb, jnp.asarray(bt), jnp.asarray(sl)))
+    got = ops.paged_decode_attention(torch.from_numpy(q), kt, vt,
+                                     torch.from_numpy(bt),
+                                     torch.from_numpy(sl))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    want16 = np.asarray(jref.paged_decode_attention(
+        jnp.asarray(q).astype(jnp.bfloat16), kb, vb, jnp.asarray(bt),
+        jnp.asarray(sl)).astype(jnp.float32))
+    got16 = ops.paged_decode_attention(
+        torch.from_numpy(q).to(torch.bfloat16), kt, vt, torch.from_numpy(bt),
+        torch.from_numpy(sl))
+    assert got16.dtype == torch.bfloat16
+    assert (np.abs(got16.float().numpy() - want16) <= bf16_ulp(want16)).all()
+
+
+def test_paged_attention_empty_row_is_nan_as_in_reference():
+    """A row with no valid position (seq_len 0, or every page absent) is
+    NaN in ``ref.py``'s softmax over nothing but -inf, and in the port's
+    plain version (and CUDA kernel).  The reference's Pallas kernel
+    writes 0 there instead; the port follows ``ref.py``.  The engine
+    never asks for such a row: its lengths are at least 1."""
+    args = _paged_inputs(10, 3, 4, 2, 32, 6, 8, bt=[[0, 1], [-1, -1], [2, 3]],
+                         sl=[0, 9, 12])
+    want = np.asarray(jref.paged_decode_attention(*map(jnp.asarray, args)))
+    got = ops.paged_decode_attention(*map(torch.from_numpy, args)).numpy()
+    assert np.isnan(want[:2]).all() and np.isnan(got[:2]).all()
+    np.testing.assert_allclose(got[2], want[2], atol=1e-4)
+    pallas = np.asarray(paged_decode_attention_pallas(
+        *map(jnp.asarray, args), interpret=True))
+    assert (pallas[:2] == 0).all()
+
+
+def test_paged_attention_scale_is_the_references_f32_value():
+    for d in (16, 64, 96, 128, 256):
+        want = float(1.0 / jnp.sqrt(d).astype(jnp.float32))
+        assert ref.decode_scale(d) == want
+
+
+def test_paged_attention_rejects_bad_shapes_and_devices():
+    q, kp, vp, bt, sl = map(torch.from_numpy, _paged_inputs(
+        11, 2, 4, 2, 16, 4, 8))
+    with pytest.raises(ValueError, match="GQA"):
+        ops.paged_decode_attention(q[:, :3], kp, vp, bt, sl)
+    with pytest.raises(ValueError, match="fit"):
+        ops.paged_decode_attention(q, kp, vp[:, :, :1], bt, sl)
+    with pytest.raises(ValueError, match="batch"):
+        ops.paged_decode_attention(q, kp, vp, bt[:1], sl)
+    meta = [x.to("meta") for x in (q, kp, vp, bt, sl)]
+    with pytest.raises(ValueError, match="device"):
+        paged_attention.paged_decode_attention(*meta)
+
+
+# -- per-frame squared error, MSE and PSNR ---------------------------------
+
+MSE_SHAPES = [(1, 8, 128), (4, 20, 150), (2, 64, 512)]
+
+
+def _mse_inputs(seed, n, h, w, dtype):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 256, (n, h, w))
+    if dtype == np.uint8:
+        b = np.clip(a + rng.integers(-12, 13, a.shape), 0, 255)
+    else:
+        b = a + rng.normal(0, 5, a.shape)
+    return a.astype(dtype), b.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("n,h,w", MSE_SHAPES)
+def test_mse_plain_matches_reference(n, h, w, dtype):
+    a, b = _mse_inputs(n * h + w, n, h, w, dtype)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    np.testing.assert_allclose(ops.mse_sum(ta, tb).numpy(),
+                               np.asarray(jref.mse_sum(ja, jb)), rtol=1e-5)
+    # the Pallas kernel in interpret mode, through the reference's padding
+    np.testing.assert_allclose(
+        ops.mse_sum(ta, tb).numpy(),
+        np.asarray(jops.mse_sum(ja, jb, use_pallas=True, interpret=True)),
+        rtol=1e-5)
+    np.testing.assert_allclose(
+        ops.mse(ta, tb).numpy(),
+        np.asarray(jops.mse(ja, jb, use_pallas=False)), rtol=1e-5)
+    np.testing.assert_allclose(
+        ops.psnr(ta, tb).numpy(),
+        np.asarray(jops.psnr(ja, jb, use_pallas=False)), rtol=1e-5)
+
+
+def test_psnr_of_equal_frames_is_capped_as_in_reference():
+    a = np.full((2, 8, 16), 7, np.uint8)
+    got = ops.psnr(torch.from_numpy(a), torch.from_numpy(a)).numpy()
+    want = np.asarray(jops.psnr(jnp.asarray(a), jnp.asarray(a),
+                                use_pallas=False))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    np.testing.assert_allclose(
+        ops.psnr_from_mse(torch.tensor([0.0, 1.0]), peak=1.0).numpy(),
+        np.asarray(jops.psnr_from_mse(jnp.asarray([0.0, 1.0]), peak=1.0)),
+        rtol=1e-5)
+
+
+def test_mse_rejects_bad_shapes_and_devices():
+    a = torch.zeros((2, 4, 4))
+    with pytest.raises(ValueError, match="N,H,W"):
+        ops.mse_sum(a, a[:1])
+    with pytest.raises(ValueError, match="N,H,W"):
+        ops.mse_sum(a[0], a[0])
+    with pytest.raises(ValueError, match="device"):
+        mse.mse_sum(a.to("meta"), a.to("meta"))
+
+
+def test_new_wrappers_on_cpu_count_plain_calls_not_launches():
+    args = map(torch.from_numpy, _paged_inputs(12, 2, 4, 2, 16, 4, 8))
+    a, b = map(torch.from_numpy, _mse_inputs(13, 2, 8, 16, np.uint8))
+    launches = _build.launch_counts()
+    _build.reset_plain_counts()
+    ops.paged_decode_attention(*args)
+    ops.mse_sum(a, b)
+    ops.psnr(a, b)
+    assert _build.plain_counts() == {"paged_attention": 1, "mse": 2}
+    assert _build.launch_counts() == launches
+    _build.reset_plain_counts()
+
+
+def test_every_kernel_has_a_source_in_the_build():
+    assert {"paged_attention", "mse"} <= set(_build.SOURCES)
+    for name in _build.SOURCES:
+        assert (_build.CSRC_DIR / f"{name}.cu").exists()
