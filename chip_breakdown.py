@@ -19,8 +19,9 @@ prints:
   1080p camera pairs written, jointly compressed and read back);
 - the same for one CUDA run of ``chip_smoke.py``'s serving path (the
   paged-KV engine over Qwen3-32B at full width, 16 layers, eight
-  requests), with the device time split into the paged-attention
-  kernel, the bf16 matrix products, the pool's indexed writes and the
+  requests), with the device time split into the paged attention (its
+  split kernel and its combine kernel, the combine also on a line of
+  its own), the bf16 matrix products, the pool's indexed writes and the
   rest, and the host's share (wall time the device was idle).
 
 Every time stands beside the card's ``nvidia-smi`` name and power
@@ -134,12 +135,20 @@ def main() -> int:
             f"{k} {v:.4f} s" for k, v in split.items())
               + f"; host (device idle) {wall - busy:.4f} s of {wall:.4f} s"
               f" [{card}]")
+        combine = sum(v for k, v in by_name.items()
+                      if PAGED_COMBINE in k.lower())
+        share = combine / max(split["paged attention"], 1e-12)
+        print(f"  of which the paged attention's combine kernel"
+              f" {combine:.4f} s ({share:.4f} of the paged attention)"
+              f" [{card}]")
     return 0
 
 
-# kernel-name fragments of each part of a serving run's device time
+# kernel-name fragments of each part of a serving run's device time; the
+# paged attention is two kernels (csrc/paged_attention.cu)
+PAGED_COMBINE = "paged_combine_kernel"
 SERVING_PARTS = (
-    ("paged attention", ("paged_attention_kernel",)),
+    ("paged attention", ("paged_split_kernel", PAGED_COMBINE)),
     ("bf16 GEMMs", ("gemm", "xmma", "cutlass", "nvjet", "splitk")),
     ("pool writes", ("index_put", "indexing", "index_elementwise")),
 )

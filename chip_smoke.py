@@ -44,13 +44,20 @@ and PyTorch built for CUDA.  In order it:
    sequences of 1 to 4096 tokens, 64 query and 8 KV heads of 128, pages
    of 16) in bf16 and f32, at Phi-3-mini's (32 and 32 heads of 96) and
    at a small ragged shape (absent pages, pages shared between rows,
-   lengths at 1 and on a page boundary): f32 within 1e-4, bf16 within
-   one bf16 ulp of the plain version's f32 result; the per-frame squared
-   error at thirty 1080p planes in uint8 and f32 and at a ragged shape,
-   within rtol 1e-5.  It times both, and a gather of the pages followed
-   by ``scaled_dot_product_attention`` as a yardstick.  ``ops.psnr`` of
-   the main path's whole-clip read against its source must agree with
-   its plain version and with ``exact_mse`` frame by frame;
+   lengths at 1 and on a page boundary), and at the split-KV kernel's
+   seams (lengths at the planned split boundaries and one either side,
+   a split wholly on absent pages, rows with no valid position, one
+   32 768-token sequence, Command R+'s 96 query heads on 8, heads of
+   512): f32 within 1e-4, bf16 within one bf16 ulp of the plain
+   version's f32 result, NaN in the same places, and two calls on the
+   same inputs equal bit for bit; the per-frame squared error at thirty
+   1080p planes in uint8 and f32 and at a ragged shape, within rtol
+   1e-5.  It times both, the paged attention's two kernels apart
+   (``torch.profiler``), and a gather of the pages followed by
+   ``scaled_dot_product_attention`` (the paged attention's
+   ``library_ms``).  ``ops.psnr`` of the main path's whole-clip read
+   against its source must agree with its plain version and with
+   ``exact_mse`` frame by frame;
 7. drives the serving engine (``ServingEngine``, a paged KV pool of 1024
    pages of 16 tokens) over a Qwen3-32B-width model cut to 16 of its 64
    layers, with random weights drawn on the card from seed 0: seven
@@ -99,7 +106,13 @@ from repro_torch.data.video import (  # noqa: E402
     synthesize_overlapping_pair,
     synthesize_road,
 )
-from repro_torch.kernels import _build, delta_codec, ops, ref  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _build,
+    delta_codec,
+    ops,
+    paged_attention,
+    ref,
+)
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
@@ -813,8 +826,13 @@ def gather_sdpa(q, kp, vp, bt, sl):
 def _check_paged(what, q, kp, vp, bt, sl) -> float:
     """Kernel against the plain version on the same inputs: f32 within
     1e-4, bf16 within one bf16 ulp of the plain f32 result; NaN (an empty
-    row) in the same places.  Returns max |d| against the f32 result."""
+    row) in the same places; a second call gives the same bits.  Returns
+    max |d| against the f32 result."""
     k = ops.paged_decode_attention(q, kp, vp, bt, sl)
+    again = ops.paged_decode_attention(q, kp, vp, bt, sl)
+    if not torch.equal(k.view(torch.uint8), again.view(torch.uint8)):
+        print(f"  paged_attention {what:44s} two calls differ FAIL")
+        raise AssertionError(f"paged_attention {what}: two calls differ")
     p32 = ref.paged_decode_attention(q.float(), kp.float(), vp.float(), bt,
                                      sl)
     if not torch.equal(torch.isnan(k), torch.isnan(p32)):
@@ -836,6 +854,68 @@ def _check_paged(what, q, kp, vp, bt, sl) -> float:
     return err
 
 
+def split_seam_cases(rng, device):
+    """The split-KV kernel's seams, each in f32 and bf16: lengths at the
+    planned split boundaries and one position either side; a row one of
+    whose splits lies wholly on absent pages; rows with no valid position
+    (every page absent, or length 0); one 32768-token sequence (many
+    splits); Command R+'s grouping (96 query heads on 8 KV heads); heads
+    of 512, whose rows a warp holds one at a time."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    b, hkv, page, maxp = 6, 8, 16, 64
+    _n, chunk = paged_attention.plan_splits(b, hkv, maxp * page, n_sm)
+    at = [chunk - 1, chunk, chunk + 1, 2 * chunk - 1, 2 * chunk,
+          2 * chunk + 1]
+    seam = paged_case(rng, b=b, hq=64, hkv=hkv, d=128, page=page,
+                      lens=[min(x, maxp * page) for x in at], device=device,
+                      bt=np.arange(b * maxp).reshape(b, maxp))
+    # row 0: valid pages, then 2 chunks' worth absent, then valid again;
+    # row 1: every page absent; row 2: length 0
+    _n, c3 = paged_attention.plan_splits(3, hkv, maxp * page, n_sm)
+    hole = np.arange(3 * maxp).reshape(3, maxp)
+    hole[0, c3 // page:3 * c3 // page] = -1
+    hole[1] = -1
+    gap = paged_case(rng, b=3, hq=64, hkv=hkv, d=128, page=page,
+                     lens=[maxp * page, maxp * page, 0], device=device,
+                     bt=hole)
+    long = paged_case(rng, b=1, hq=64, hkv=8, d=128, page=16, lens=[32768],
+                      device=device)
+    cr = paged_case(rng, b=4, hq=96, hkv=8, d=128, page=16,
+                    lens=[1, 1000, 3000, 4096], device=device)
+    wide = paged_case(rng, b=2, hq=8, hkv=2, d=512, page=8, lens=[33, 900],
+                      device=device)
+    out = []
+    for what, args in ((f"split seams (6,64,128) L chunk {chunk} +-1", seam),
+                       ("absent split/all-absent/empty rows (3,64,128)", gap),
+                       ("one sequence (1,64,128) kv 8 L 32768", long),
+                       ("command-r+ (4,96,128) kv 8 L 1..4096", cr),
+                       ("wide heads (2,8,512) kv 2 L 33, 900", wide)):
+        out.append((f"{what} f32", args))
+        out.append((f"{what} bf16", tuple(
+            x.to(torch.bfloat16) if x.is_floating_point() else x
+            for x in args)))
+    return out
+
+
+def device_ms_by_kernel(fn, reps: int):
+    """Device ms per call of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        if us > 0:
+            out[e.key] = us / 1e3 / reps
+    return out
+
+
 def check_serving_kernels(device: str, reps: int, seed: int = 0):
     """Hold the paged attention and the squared-error kernel against their
     plain versions at the serving and quality shapes; time both at the
@@ -855,6 +935,7 @@ def check_serving_kernels(device: str, reps: int, seed: int = 0):
                        47], device=device,
                        bt=[[0, -1, 2, 5], [1, 3, -1, -1], [2, 4, 0, -1],
                            [2, -1, 4, 5]])
+    seams = split_seam_cases(rng, device)
     cases = (
         ("qwen3 (8,64,128) kv 8 L 1..4096 f32", f32),
         ("qwen3 (8,64,128) kv 8 L 1..4096 bf16", bf),
@@ -866,6 +947,7 @@ def check_serving_kernels(device: str, reps: int, seed: int = 0):
         ("ragged (4,4,64) kv 2 absent/shared pages bf16",
          tuple(x.to(torch.bfloat16) if x.is_floating_point() else x
                for x in small)),
+        *seams,
     )
     for what, args in cases:
         res["paged_attention"]["max_abs_err"] = max(
@@ -882,10 +964,13 @@ def check_serving_kernels(device: str, reps: int, seed: int = 0):
         dtype="bf16")
     res["paged_attention"]["bound_ms"], res["paged_attention"]["bound_by"] = \
         paged_bound(*bf[:2], *bf[3:])
-    res["sdpa_ms"] = time_ms(lambda: gather_sdpa(*bf), reps)
+    res["paged_attention"]["library_ms"] = res["sdpa_ms"] = time_ms(
+        lambda: gather_sdpa(*bf), reps)
     res["paged_attention_f32_ms"] = time_ms(
         lambda: ops.paged_decode_attention(*f32), reps)
-    del f32, bf, phi, small
+    res["paged_attention_parts_ms"] = device_ms_by_kernel(
+        lambda: ops.paged_decode_attention(*bf), reps)
+    del f32, bf, phi, small, seams, cases
 
     planes = {}
     for dt in (torch.uint8, torch.float32):
@@ -1197,6 +1282,10 @@ def main() -> int:
         print(f"  {name:12s} at {r['shape']} {r['dtype']}: kernel"
               f" {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound"
               f" {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    print("  paged_attention's kernels at that shape, device ms per call"
+          " (torch.profiler): " + "; ".join(
+              f"{k[:70]} {v:.4f}" for k, v in
+              snum["paged_attention_parts_ms"].items()) + f" [{card}]")
     print(f"  yardstick: gather + scaled_dot_product_attention at the same"
           f" bf16 qwen3 shape {snum['sdpa_ms']:.4f} ms (max|d| vs plain"
           f" {snum['sdpa_err']:.3g}); paged_attention in f32"
@@ -1302,7 +1391,7 @@ def main() -> int:
             "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

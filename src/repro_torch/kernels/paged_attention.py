@@ -14,10 +14,19 @@ wrapper takes contiguous tensors only (the serving engine passes
 dtype, bf16 or f32, and head widths of whole 16-byte vectors (every
 configured head is), and raises on anything else rather than copying or
 converting it.  A row with no valid position is NaN, as in ``ref.py``.
+
+The kernel is split-KV: each (KV head, sequence) walks its positions in
+``n_split`` ranges of ``chunk`` positions on separate blocks, which
+write partial softmax states to an f32 workspace that this wrapper
+allocates; a second launch folds them in split order.  The split is
+planned from shapes alone (``plan_splits``): the wrapper never reads
+``seq_lens`` on the host, so a call queues its launches without waiting
+on the device.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,14 +37,35 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 DTYPES = (torch.bfloat16, torch.float32)
 MAX_BATCH = 65535  # the kernel's grid.y
+MAX_SPLITS = 65535  # the kernel's grid.z
+TILE = 32  # positions; every tile of the kernel divides it
+WAVES = 8  # blocks the split aims at, per SM, before empty ones return
+
+
+def plan_splits(b: int, hkv: int, max_len: int, n_sm: int) -> tuple:
+    """``(n_split, chunk)`` for ``b`` sequences of ``hkv`` KV heads over at
+    most ``max_len`` (``maxp * page``) positions on ``n_sm`` SMs: enough
+    splits that the (KV head, sequence, split) blocks fill the card
+    ``WAVES`` times over, each a ``chunk`` of whole tiles (a multiple of
+    ``TILE``), and ``n_split * chunk >= max_len``.
+    A pure function of host-known ints."""
+    want = max(1, -(-WAVES * n_sm // (b * hkv)))
+    chunk = max(-(-max_len // want), -(-max_len // MAX_SPLITS), 1)
+    chunk = -(-chunk // TILE) * TILE
+    return max(1, -(-max_len // chunk)), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib():
     lib = _build.load("paged_attention")
     if lib.vss_paged_attention.argtypes is None:
         lib.vss_paged_attention.argtypes = [
-            _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-            ctypes.c_float, _P]
+            _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+            _I, _I, _I, ctypes.c_float, _P]
         lib.vss_paged_attention.restype = _I
     return lib
 
@@ -90,13 +120,21 @@ def paged_decode_attention(
         return out
     if maxp == 0 or page == 0:
         return out.zero_()  # ref.py's sum over no position at all
+    n_split, chunk = plan_splits(b, hkv, maxp * page,
+                                 _sm_count(q.device.index))
+    # per (sequence, query head, split): running max, sum, then D sums
+    n = b * hq * n_split
+    ws = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)
+    m_ws, l_ws, acc_ws = ws[:n], ws[n:2 * n], ws[2 * n:]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        # two kernels (split, combine), one launch of this kernel's count
         err = lib.vss_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             q.element_size(), block_table.data_ptr(), seq_lens.data_ptr(),
-            out.data_ptr(), b, hkv, g, d, page, maxp, ref.decode_scale(d),
-            stream)
+            out.data_ptr(), m_ws.data_ptr(), l_ws.data_ptr(),
+            acc_ws.data_ptr(), b, hkv, g, d, page, maxp, n_split, chunk,
+            ref.decode_scale(d), stream)
     _build.count_launch("paged_attention")
     _build.check(lib, err, "paged_attention")
     return out

@@ -422,6 +422,136 @@ def test_paged_attention_rejects_bad_shapes_and_devices():
         paged_attention.paged_decode_attention(*meta)
 
 
+# -- the split-KV kernel's arithmetic: partial softmax states per chunk of
+# positions, folded in split order (csrc/paged_attention.cu) -------------
+
+def _chunk_partials(q, kp, vp, bt, sl, chunk):
+    """Each chunk's (m, l, acc) per query row, in plain torch: the running
+    max of its valid scores (-inf when it has none), the sum of their
+    exponentials from that max, and the weighted sum of V rows.  An
+    empty chunk's acc is NaN, as a workspace the kernel never wrote may
+    hold: the combine must not read it."""
+    b, hq, d = q.shape
+    _p, page, hkv, _ = kp.shape
+    g, maxp = hq // hkv, bt.shape[1]
+    safe = bt.clamp(min=0).long()
+    k = kp[safe].reshape(b, maxp * page, hkv, d)
+    v = vp[safe].reshape(b, maxp * page, hkv, d)
+    pos = torch.arange(maxp * page)
+    valid = (pos[None] < sl[:, None]) & (bt >= 0).repeat_interleave(page, 1)
+    s = torch.einsum("bhgd,blhd->bhgl", q.reshape(b, hkv, g, d), k)
+    s = s * ref.decode_scale(d)
+    out = []
+    for start in range(0, maxp * page, chunk):
+        mine = valid & (pos[None] >= start) & (pos[None] < start + chunk)
+        sc = torch.where(mine[:, None, None], s, -torch.inf)
+        m = sc.amax(-1)
+        base = torch.where(m == -torch.inf, 0.0, m)
+        p = torch.exp(sc - base[..., None])
+        acc = torch.einsum("bhgl,blhd->bhgd", p, v)
+        acc = torch.where((m == -torch.inf)[..., None], torch.nan, acc)
+        out.append((m.reshape(b, hq), p.sum(-1).reshape(b, hq),
+                    acc.reshape(b, hq, d)))
+    return out
+
+
+def _combine(partials):
+    """The combine's formula: M = max m_s; each split with m_s > -inf
+    weighs in with expf(m_s - M), an empty one is skipped; out = sum w_s
+    acc_s / sum w_s l_s (0 / 0 = NaN for a row with nothing valid)."""
+    mx = torch.stack([m for m, _l, _a in partials]).amax(0)
+    num = torch.zeros_like(partials[0][2])
+    den = torch.zeros_like(partials[0][1])
+    for m, l, acc in partials:
+        live = m > -torch.inf
+        w = torch.exp(torch.where(live, m - mx, 0.0))
+        num = num + torch.where(live[..., None], w[..., None] * acc, 0.0)
+        den = den + torch.where(live, w * l, 0.0)
+    return num / den[..., None]
+
+
+SPLIT_CASES = {
+    # lengths at chunk - 1, chunk and chunk + 1 (chunk 32, pages of 8)
+    "seams": dict(b=3, hq=8, hkv=2, d=32, p=12, page=8, maxp=8, chunk=32,
+                  sl=[31, 32, 33]),
+    # chunk 1 (positions 16..31) lies wholly on absent pages
+    "absent_chunk": dict(b=2, hq=4, hkv=2, d=16, p=8, page=8, maxp=6,
+                         chunk=16, bt=[[0, 1, -1, -1, 2, 3], [4, 5, 6, 7,
+                                                              -1, 1]],
+                         sl=[48, 41]),
+    # row 1 has no valid position, row 2 length 0: NaN as in ref.py
+    "empty_rows": dict(b=3, hq=4, hkv=2, d=16, p=6, page=4, maxp=4, chunk=8,
+                       bt=[[0, 1, 2, 3], [-1, -1, -1, -1], [4, 5, 0, 1]],
+                       sl=[13, 16, 0]),
+    "one_split": dict(b=2, hq=8, hkv=2, d=32, p=8, page=8, maxp=4, chunk=32,
+                      sl=[32, 9]),
+    "g1_phi3": dict(b=2, hq=4, hkv=4, d=96, p=10, page=16, maxp=5, chunk=32,
+                    sl=[80, 47]),
+    "g12_command_r": dict(b=2, hq=24, hkv=2, d=32, p=10, page=8, maxp=5,
+                          chunk=16, sl=[40, 17]),
+}
+
+
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_split_partials_combine_to_the_reference(name):
+    case = dict(SPLIT_CASES[name])
+    chunk = case.pop("chunk")
+    args = _paged_inputs(14, **case)
+    want = np.asarray(jref.paged_decode_attention(*map(jnp.asarray, args)))
+    partials = _chunk_partials(*map(torch.from_numpy, args), chunk)
+    assert (len(partials) == 1) == (name == "one_split")
+    got = _combine(partials).numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    if name == "empty_rows":
+        assert np.isnan(want[1:]).all() and not np.isnan(want[0]).any()
+    else:
+        assert not np.isnan(want).any()
+    np.testing.assert_allclose(np.nan_to_num(got), np.nan_to_num(want),
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("b,hkv,max_len,n_sm", [
+    (8, 8, 4096, 132), (1, 8, 32768, 132), (7, 8, 640, 132), (1, 32, 16, 132),
+    (3, 2, 100_000_000, 132), (65535, 8, 48, 132), (4, 8, 4097, 78)])
+def test_split_plan_covers_each_position_once(b, hkv, max_len, n_sm):
+    n_split, chunk = paged_attention.plan_splits(b, hkv, max_len, n_sm)
+    assert chunk % paged_attention.TILE == 0 and chunk > 0
+    assert 1 <= n_split <= paged_attention.MAX_SPLITS
+    # the ranges [i * chunk, (i + 1) * chunk) cover 0..max_len - 1 once,
+    # and no split starts past the end
+    assert (n_split - 1) * chunk < max_len <= n_split * chunk
+
+
+def test_split_plan_fills_the_card_at_the_decode_shape():
+    """Qwen3-32B's timed decode shape: 8 sequences of 8 KV heads over
+    4096 positions on 132 SMs gives 16 splits of 256, 1024 blocks."""
+    assert paged_attention.plan_splits(8, 8, 4096, 132) == (16, 256)
+
+
+def test_split_tile_of_the_wrapper_is_the_kernels():
+    """The planner's chunk is a multiple of ``TILE``; the kernel's tiles
+    (4 warps of 4 or 8 positions) all divide its ``kMaxTile``, which the
+    wrapper's ``TILE`` must equal."""
+    import re
+
+    src = (_build.CSRC_DIR / "paged_attention.cu").read_text()
+    assert int(re.search(r"kMaxTile = (\d+);", src).group(1)) == \
+        paged_attention.TILE
+
+
+def test_paged_wrapper_never_syncs_with_the_device():
+    """The wrapper never reads a device tensor on the host (``.item()``,
+    ``.cpu()``, ``.tolist()``, ``.numpy()``): the engine calls it once per
+    layer in every decode step."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(paged_attention))
+    called = {n.func.attr for n in ast.walk(tree)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)}
+    assert not called & {"item", "cpu", "tolist", "numpy"}
+
+
 # -- per-frame squared error, MSE and PSNR ---------------------------------
 
 MSE_SHAPES = [(1, 8, 128), (4, 20, 150), (2, 64, 512)]
