@@ -16,7 +16,9 @@ prints:
   device time the profiler saw in it (kernels and copies), the idle
   share, and the device time by name;
 - the same for one CUDA run of ``chip_smoke.py``'s joint path (two
-  1080p camera pairs written, jointly compressed and read back);
+  1080p camera pairs written, jointly compressed and read back), with
+  the device time split by kernel name into the warp, the histogram,
+  the codec kernels, copies and the rest;
 - the same for one CUDA run of ``chip_smoke.py``'s serving path (the
   paged-KV engine over Qwen3-32B at full width, 16 layers, eight
   requests), with the device time split into the paged attention (its
@@ -123,6 +125,10 @@ def main() -> int:
             wall, busy, by_name = device_busy(
                 lambda: drive(os.path.join(d, "vss"), data, "cuda"))
         report(label, wall, busy, by_name, card)
+        if busy is not None and label == "joint path":
+            split = split_by_name(by_name, JOINT_PARTS)
+            print("joint device time by part: " + ", ".join(
+                f"{k} {v:.4f} s" for k, v in split.items()) + f" [{card}]")
     cfg, model = chip_smoke.serving_model()
     prompts = chip_smoke.serving_prompts(cfg.vocab_size)
     chip_smoke.drive_serving(model, cfg, prompts)  # warm up cuBLAS, caches
@@ -130,7 +136,7 @@ def main() -> int:
         lambda: chip_smoke.drive_serving(model, cfg, prompts))
     report("serving path", wall, busy, by_name, card)
     if busy is not None:
-        split = serving_split(by_name)
+        split = split_by_name(by_name, SERVING_PARTS)
         print("serving device time by part: " + ", ".join(
             f"{k} {v:.4f} s" for k, v in split.items())
               + f"; host (device idle) {wall - busy:.4f} s of {wall:.4f} s"
@@ -154,14 +160,24 @@ SERVING_PARTS = (
 )
 
 
-def serving_split(by_name):
+# the same for the joint path: its two kernels by their symbols
+# (csrc/warp.cu, csrc/histogram.cu), the codec's, and the copies
+JOINT_PARTS = (
+    ("warp", ("warp_kernel",)),
+    ("histogram", ("histogram_kernel",)),
+    ("codec kernels", ("delta_encode_kernel", "delta_decode_kernel")),
+    ("copies", ("memcpy", "memset")),
+)
+
+
+def split_by_name(by_name, parts):
     """Device seconds by part; kernels that match no part are "other"
-    (norms, rope, softmax, elementwise, copies)."""
-    out = {part: 0.0 for part, _ in SERVING_PARTS}
+    (on the serving path: norms, rope, softmax, elementwise, copies)."""
+    out = {part: 0.0 for part, _ in parts}
     out["other"] = 0.0
     for name, secs in by_name.items():
         low = name.lower()
-        part = next((p for p, frags in SERVING_PARTS
+        part = next((p for p, frags in parts
                      if any(f in low for f in frags)), "other")
         out[part] += secs
     return out

@@ -16,10 +16,18 @@ and PyTorch built for CUDA.  In order it:
    card, at a 1080p 30-frame GOP and at a ragged shape, for every codec
    tier and transcode combination, and the joint path's warp and
    histogram at 1080p (a projective homography, one whose Z crosses 0,
-   a 30-frame GOP) and at ragged shapes; every output must be equal
-   exactly (the warp's NaN, where a source coordinate is 0/0, in the same
-   places).  It times each kernel and its plain version with CUDA events
-   (mean over many calls queued back to back);
+   a 30-frame GOP), at ragged shapes and at the seams of their designs
+   (output widths 1 to 1919, sources off 16-byte boundaries, rows outside
+   the source; planes of 1 to 2 073 601 values, one value everywhere,
+   NaN and infinities, 1 to the most bins, vmax other than 255); every
+   output must be equal exactly (the warp's NaN, where a source
+   coordinate is 0/0, in the same places), a second call must give the
+   same bits, and histogram counts must sum to the values counted; one
+   warmed histogram call must run exactly one operation on the device,
+   its kernel (``torch.profiler``).  It times each kernel and its plain version with CUDA events (mean over
+   many calls queued back to back), the warp and histogram beside a
+   PyTorch yardstick (``F.grid_sample``, ``torch.bincount``) and an empty
+   kernel (the harness's launch floor);
 4. drives the storage manager end to end: ``VSS.write`` of a 1080p,
    90-frame synthetic road clip as ``hevc``, ``codec.transcode_gop`` of a
    stored GOP, and five ``VSS.read``s (whole clip, a time window, half
@@ -109,6 +117,7 @@ from repro_torch.data.video import (  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     _build,
     delta_codec,
+    histogram,
     ops,
     paged_attention,
     ref,
@@ -270,12 +279,156 @@ def histogram_bound(n, c, h, w, bins, src_bytes):
                   5 * n * c * h * w)
 
 
+def _repeat_exact(name: str, what: str, first, fn) -> None:
+    """A second call on the same inputs must give the same bits."""
+    again = fn()
+    a = first.view(torch.int32) if first.is_floating_point() else first
+    b = again.view(torch.int32) if again.is_floating_point() else again
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name} {what}: a second call gave other bits")
+
+
+def warp_grid(hinv, h, w, oh, ow, device):
+    """``F.grid_sample``'s normalised grid for the plain warp's source
+    coordinates (align_corners=True: -1 and 1 are the centres of the
+    first and last source pixel)."""
+    m = torch.from_numpy(ops.hmat_f32(hinv)).to(device)
+    ys, xs = torch.meshgrid(
+        torch.arange(oh, device=device, dtype=torch.float32),
+        torch.arange(ow, device=device, dtype=torch.float32), indexing="ij")
+    sxyz = [ref.fma_f32(m[r, 1], ys, m[r, 0] * xs) + m[r, 2]
+            for r in range(3)]
+    sx, sy = sxyz[0] / sxyz[2], sxyz[1] / sxyz[2]
+    return torch.stack([sx / (w - 1) * 2 - 1, sy / (h - 1) * 2 - 1], -1)[None]
+
+
+def histogram_keys(x, bins, vmax=255.0):
+    """``ref.histogram``'s plane-offset bin keys, for ``torch.bincount``."""
+    n, c = x.shape[:2]
+    v = torch.nan_to_num(torch.trunc(
+        x.to(torch.float32) * ref.histogram_scale(bins, vmax)), nan=0.0)
+    idx = torch.clamp(v, 0, bins - 1).to(torch.int64).reshape(n * c, -1)
+    return (idx + torch.arange(n * c, device=x.device)[:, None] * bins
+            ).reshape(-1)
+
+
+def _unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def warp_cases(frame, gop, ragged, h_rl, x_g, rng, device):
+    """(label, source, homography, out_shape) of every warp check: the
+    joint path's shapes, the ragged ones, and the seams of the kernel's
+    design (4 columns per thread, 16-byte stores only where OW is a
+    multiple of 4, 32-bit offsets, sources at any alignment, X = 0 and
+    Z near 0, floors past the int32 range)."""
+    hinv = np.linalg.inv(h_rl)
+    u8 = lambda *shape: torch.from_numpy(rng.integers(  # noqa: E731
+        0, 256, shape, dtype=np.uint8)).to(device)
+    shift = lambda d: np.array([[1, 0, d], [0, 1, d], [0, 0, 1]],  # noqa: E731
+                               np.float32)
+    rot = np.array([[0.9, -0.4, 300.0], [0.4, 0.9, -200.0], [0, 0, 1]],
+                   np.float32)
+    return (
+        ("1080p uint8 inv(H_rl) full", frame, hinv, None),
+        ("1080p f32 inv(H_rl) full", frame.float(), hinv, None),
+        (f"1080p uint8 H_rl -> (1080, {x_g})", frame, h_rl, (1080, x_g)),
+        (f"1080p 30-frame GOP H_rl -> (1080, {x_g})", gop, h_rl,
+         (1080, x_g)),
+        ("1080p uint8 Z crosses 0", frame, Z_CROSSING_1080P, None),
+        ("ragged (3,17,130) -> (13,97)", ragged, Z_CROSSING, (13, 97)),
+        ("ragged f32 (3,17,130) -> (13,97)", ragged.float(), hinv / 8,
+         (13, 97)),
+        # seams
+        ("N=1 (1,3,1080,1920) inv(H_rl)", frame[None], hinv, None),
+        ("30-frame GOP inv(H_rl) full", gop, hinv, None),
+        *((f"out width {ow} inv(H_rl)", frame, hinv, (1080, ow))
+          for ow in (1, 3, 4, 5, 1919)),
+        ("f32 out width 1919", frame.float(), hinv, (1080, 1919)),
+        ("rows of 1916 (4-byte, not 16-byte aligned)", u8(3, 1080, 1916),
+         hinv, None),
+        ("rows of 1917 (not 4-byte aligned)", u8(3, 1080, 1917), hinv,
+         None),
+        ("identity (X = 0 in column 0)", frame, np.eye(3, dtype=np.float32),
+         None),
+        ("scaled by 1e7 (floors past 2^22 and 2^31)", frame,
+         np.diag([1e7, 1e7, 1.0]).astype(np.float32), (40, 64)),
+        ("uint8 source 1 byte past a boundary", _unaligned(frame), hinv,
+         None),
+        ("f32 source 4 bytes past a boundary", _unaligned(frame.float()),
+         hinv, None),
+        ("shift by -0.5 (row -1 outside)", frame, shift(-0.5), None),
+        ("shift by +0.5 (row 1080 outside)", frame, shift(0.5), None),
+        ("zoom out x3", frame,
+         np.diag([3.0, 3.0, 1.0]).astype(np.float32), (360, 640)),
+        ("rotation", frame, rot, None),
+        ("ragged source (3,9,10) -> (11,13)", u8(3, 9, 10), shift(-1.5),
+         (11, 13)),
+    )
+
+
+def histogram_cases(frame, gop, ragged, rng, device, max_bins):
+    """(label, frames, bins, vmax) of every histogram check: the joint
+    path's shapes, the ragged ones, and the seams of the kernel's design
+    (16-byte loads with a scalar head and tail, uint8 binned by
+    byte >> shift or by the f32 arithmetic, lane-private counters up to
+    32 bins and per-warp ones above, one value everywhere, values out of
+    range)."""
+    one = frame[None]
+    rag2 = ragged[None].expand(2, -1, -1, -1).contiguous()
+
+    def full(value, dtype):
+        return torch.full((1, *FRAME_1080P), value, dtype=dtype,
+                          device=device)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, shape,
+                                             dtype=np.uint8)).to(device)
+
+    cases = [
+        ("(1,3,1080,1920) uint8", one, 16, 255.0),
+        ("(1,3,1080,1920) f32", one.float(), 16, 255.0),
+        ("(30,3,1080,1920) uint8", gop, 16, 255.0),
+        ("ragged (2,3,17,130)", rag2, 8, 255.0),
+        ("ragged (2,3,17,130) f32", rag2.float(), 32, 255.0),
+        # seams
+        ("one value 0 uint8", full(0, torch.uint8), 16, 255.0),
+        ("one value 255 uint8", full(255, torch.uint8), 16, 255.0),
+        *((f"one value {v} f32", full(v, torch.float32), 16, 255.0)
+          for v in (float("nan"), float("inf"), float("-inf"), 1e30)),
+        ("uint8 1 byte past a boundary", _unaligned(one), 16, 255.0),
+        ("f32 4 bytes past a boundary", _unaligned(one.float()), 16, 255.0),
+        ("f32 in [0, 1] vmax=1", torch.from_numpy(rng.random(
+            (2, 3, 37, 61), dtype=np.float32)).to(device), 10, 1.0),
+        ("f32 around [0, 127] vmax=127", torch.from_numpy(
+            rng.normal(64.0, 60.0, (2, 3, 37, 61)).astype(np.float32)
+        ).to(device), 16, 127.0),
+        ("uint8 vmax=127 (no shift)", one, 16, 127.0),
+    ]
+    for size in (1, 15, 17, 2_073_601):
+        x = u8(2 if size < 100 else 1, 3, 1, size)
+        cases += [(f"plane of {size} uint8", x, 16, 255.0),
+                  (f"plane of {size} f32", x.float(), 16, 255.0)]
+    for bins in (1, 16, 17, 256, max_bins):
+        cases += [("uint8", one, bins, 255.0),
+                  ("f32", one.float(), bins, 255.0)]
+    return cases
+
+
 def check_joint_kernels(device: str, reps: int, seed: int = 0):
     """Hold the warp and histogram kernels against their plain versions
-    at the joint path's 1080p shapes and at ragged ones (exact, NaN in
-    the same places); time both at the shapes the joint path launches
-    most: one uint8 frame warped to full size, one uint8 frame's
-    histograms."""
+    at the joint path's 1080p shapes, at ragged ones and at the seams of
+    their designs (exact, NaN in the same places, the same bits from a
+    second call; histogram counts summing to the values counted); time
+    both at the shapes the joint path launches most (one uint8 frame
+    warped to full size, one uint8 frame's histograms), the warp also on
+    a 30-frame GOP, each beside a PyTorch yardstick and an empty kernel
+    (the launch floor of the timing harness)."""
     rng = np.random.default_rng(seed)
     res = {k: {"max_abs_err": 0.0} for k in JOINT_KERNELS}
     _l, right, h_rl = synthesize_overlapping_pair(1, width=1920,
@@ -287,59 +440,88 @@ def check_joint_kernels(device: str, reps: int, seed: int = 0):
         0, 256, (30, *FRAME_1080P), dtype=np.uint8)).to(device)
     ragged = torch.from_numpy(rng.integers(
         0, 256, (3, 17, 130), dtype=np.uint8)).to(device)
-    hinv = np.linalg.inv(h_rl)
-    warps = (
-        ("1080p uint8 inv(H_rl) full", frame, hinv, None),
-        ("1080p f32 inv(H_rl) full", frame.float(), hinv, None),
-        (f"1080p uint8 H_rl -> (1080, {x_g})", frame, h_rl, (1080, x_g)),
-        (f"1080p 30-frame GOP H_rl -> (1080, {x_g})", gop, h_rl,
-         (1080, x_g)),
-        ("1080p uint8 Z crosses 0", frame, Z_CROSSING_1080P, None),
-        ("ragged (3,17,130) -> (13,97)", ragged, Z_CROSSING, (13, 97)),
-        ("ragged f32 (3,17,130) -> (13,97)", ragged.float(), hinv / 8,
-         (13, 97)),
-    )
-    for what, img, hm, out_shape in warps:
+    for what, img, hm, out_shape in warp_cases(frame, gop, ragged, h_rl,
+                                               x_g, rng, device):
         k = ops.warp(img, hm, out_shape=out_shape)
         p = ref.warp(img, torch.from_numpy(ops.hmat_f32(hm)).to(device),
                      out_shape)
         res["warp"]["max_abs_err"] = max(
             res["warp"]["max_abs_err"],
             _exact_nan("warp", what, [(k, p)]))
+        _repeat_exact("warp", what, k,
+                      lambda: ops.warp(img, hm, out_shape=out_shape))
+    hinv = np.linalg.inv(h_rl)
     hm32 = torch.from_numpy(ops.hmat_f32(hinv)).to(device)
+    src = frame.float()[None]
+    grid = warp_grid(hinv, 1080, 1920, 1080, 1920, device)
+    gs = F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                       align_corners=True)
     res["warp"].update(
         ms=time_ms(lambda: ops.warp(frame, hinv), reps),
         plain_ms=time_ms(lambda: ref.warp(frame, hm32), reps),
+        library_ms=time_ms(lambda: F.grid_sample(
+            src, grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True), reps),
+        library_err=_err(torch.nan_to_num(gs[0]),
+                         torch.nan_to_num(ops.warp(frame, hinv))),
+        gop_ms=time_ms(lambda: ops.warp(gop, h_rl, out_shape=(1080, x_g)),
+                       reps),
+        gop_bound_ms=warp_bound(30, *FRAME_1080P, 1080, x_g, 1)[0],
+        gop_shape=[30, *FRAME_1080P, 1080, x_g],
         shape=[1, *FRAME_1080P], dtype="uint8->f32")
     res["warp"]["bound_ms"], res["warp"]["bound_by"] = warp_bound(
         1, *FRAME_1080P, 1080, 1920, 1)
 
-    one = frame[None]
-    hists = (
-        ("(1,3,1080,1920) uint8 bins=16", one, 16),
-        ("(1,3,1080,1920) f32 bins=16", one.float(), 16),
-        ("(30,3,1080,1920) uint8 bins=16", gop, 16),
-        ("ragged (2,3,17,130) bins=8", ragged[None].expand(
-            2, -1, -1, -1).contiguous(), 8),
-        ("ragged (2,3,17,130) f32 bins=32", ragged[None].expand(
-            2, -1, -1, -1).float().contiguous(), 32),
-    )
-    for what, x, bins in hists:
-        k = ops.histogram(x, bins=bins)
-        p = ref.histogram(x, bins=bins)
+    max_bins = histogram.max_bins()
+    for what, x, bins, vmax in histogram_cases(frame, gop, ragged, rng,
+                                               device, max_bins):
+        what = f"{what} {tuple(x.shape)} bins={bins} vmax={vmax:g}"
+        k = ops.histogram(x, bins=bins, vmax=vmax)
+        p = ref.histogram(x, bins=bins, vmax=vmax)
         res["histogram"]["max_abs_err"] = max(
             res["histogram"]["max_abs_err"],
             _exact("histogram", what, [(k, p)]))
         if int(k.sum()) != x.numel():
             raise AssertionError(f"histogram {what}: counts do not sum to"
                                  f" {x.numel()}")
+        _repeat_exact("histogram", what, k,
+                      lambda: ops.histogram(x, bins=bins, vmax=vmax))
+    one = frame[None]
+    key = histogram_keys(one, 16)
+    if not torch.equal(torch.bincount(key, minlength=3 * 16).view(1, 3, 16)
+                       .to(torch.int32), ops.histogram(one, bins=16)):
+        raise AssertionError("histogram: the bincount yardstick disagrees")
     res["histogram"].update(
         ms=time_ms(lambda: ops.histogram(one, bins=16), reps),
         plain_ms=time_ms(lambda: ref.histogram(one, bins=16), reps),
+        library_ms=time_ms(lambda: torch.bincount(key, minlength=3 * 16),
+                           reps),
         shape=list(one.shape), dtype="uint8")
     res["histogram"]["bound_ms"], res["histogram"]["bound_by"] = \
         histogram_bound(1, *FRAME_1080P, 16, 1)
+    check_one_kernel_a_call(lambda: ops.histogram(one, bins=16))
+    res["launch_floor_ms"] = time_ms(lambda: torch.cuda._sleep(0), reps)
     return res
+
+
+def check_one_kernel_a_call(fn) -> None:
+    """Profile one warmed call of ``fn`` and require that the device ran
+    exactly one operation in it, a histogram kernel (no zeroing kernel or
+    memset beside it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops_seen = [e.name for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+    print(f"  histogram    device operations in one warmed call: {ops_seen}")
+    if len(ops_seen) != 1 or "histogram" not in ops_seen[0]:
+        raise AssertionError(f"histogram: one warmed call ran {ops_seen} on"
+                             " the device, not one histogram kernel")
 
 
 def check_kernels(device: str, shapes, reps: int, seed: int = 0):
@@ -1274,7 +1456,9 @@ def main() -> int:
     print("kernels vs plain versions on the card (exact):", flush=True)
     knum = check_kernels("cuda", (("1080p", GOP_1080P), ("ragged", RAGGED)),
                          reps=20)
-    knum.update(check_joint_kernels("cuda", reps=20))
+    jnum = check_joint_kernels("cuda", reps=50)
+    launch_floor_ms = jnum.pop("launch_floor_ms")
+    knum.update(jnum)
     print("serving kernels vs plain versions on the card:", flush=True)
     snum = check_serving_kernels("cuda", reps=20)
     knum.update({k: snum[k] for k in SERVING_KERNELS})
@@ -1282,6 +1466,14 @@ def main() -> int:
         print(f"  {name:12s} at {r['shape']} {r['dtype']}: kernel"
               f" {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound"
               f" {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+    w, hg = knum["warp"], knum["histogram"]
+    print(f"  warp of a uint8 30-frame GOP to {tuple(w['gop_shape'][-2:])}:"
+          f" {w['gop_ms']:.4f} ms, bound {w['gop_bound_ms']:.4f} ms; yardsticks:"
+          f" F.grid_sample of the f32 frame on a precomputed grid"
+          f" {w['library_ms']:.4f} ms (max|d| vs the kernel"
+          f" {w['library_err']:.3g}), torch.bincount of precomputed bin keys"
+          f" {hg['library_ms']:.4f} ms; launch_floor_ms (an empty kernel,"
+          f" same harness) {launch_floor_ms:.4f} [{card}]")
     print("  paged_attention's kernels at that shape, device ms per call"
           " (torch.profiler): " + "; ".join(
               f"{k[:70]} {v:.4f}" for k, v in

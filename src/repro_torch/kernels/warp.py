@@ -26,7 +26,7 @@ from repro_torch.kernels.delta_codec import check_cuda, on_cpu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SRC_DTYPES = (torch.uint8, torch.float32)
-MAX_FRAMES = 65535  # the kernel's grid.y
+MAX_FRAMES = 65535  # the kernel's grid.z
 
 
 def _lib():

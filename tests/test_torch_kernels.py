@@ -10,6 +10,8 @@ tolerances (atol 1e-4 in f32, rtol 1e-5; ``tests/test_kernels.py``).
 
 The CUDA kernels themselves run only on the card; ``chip_smoke.py``
 holds each against its plain version there."""
+import inspect
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -262,6 +264,157 @@ def test_warp_takes_a_float64_homography_rounded_to_f32():
     assert torch.equal(ops.warp(x, h), ops.warp(x, h.astype(np.float32)))
     assert torch.equal(ops.warp(x, torch.from_numpy(h)),
                        ops.warp(x, h.astype(np.float32)))
+
+
+def _reference_byte_bins(bins, vmax):
+    """The bin ``ref.histogram`` gives each byte value, one plane each."""
+    x = torch.arange(256, dtype=torch.uint8).reshape(256, 1, 1, 1)
+    counts = ref.histogram(x, bins=bins, vmax=vmax)[:, 0]
+    assert torch.equal(counts.sum(1), torch.ones(256, dtype=torch.int32))
+    return counts.argmax(1).numpy()
+
+
+@pytest.mark.parametrize("vmax", [255.0, 127.0])
+def test_byte_bins_are_the_references_bins(vmax):
+    """The host's byte -> bin table (the kernel's f32 arithmetic), which
+    decides where the uint8 kernel may bin by a shift, is the plain
+    version's bin for every byte, at every bin count up to 64."""
+    for bins in range(1, 65):
+        np.testing.assert_array_equal(histogram.byte_bins(bins, vmax),
+                                      _reference_byte_bins(bins, vmax),
+                                      err_msg=f"bins={bins}")
+
+
+@pytest.mark.parametrize("vmax", [255.0, 127.0])
+def test_byte_shift_only_where_every_byte_agrees(vmax):
+    """A shift is passed to the kernel only where ``byte >> shift`` is
+    every byte's bin; elsewhere it is -1 and the kernel bins by the f32
+    arithmetic."""
+    v = np.arange(256)
+    for bins in [*range(1, 65), 128, 256]:
+        want = _reference_byte_bins(bins, vmax)
+        s = histogram.byte_shift(bins, vmax)
+        if s >= 0:
+            np.testing.assert_array_equal(v >> s, want, err_msg=f"bins={bins}")
+        else:
+            assert not any(np.array_equal(v >> k, want) for k in range(9))
+    if vmax == 255.0:  # the fingerprint's 16 bins take the shift
+        assert histogram.byte_shift(16, vmax) == 4
+        assert histogram.byte_shift(17, vmax) == -1
+
+
+def _zeroing_launch(out, nxt):
+    """Stands in for the kernel: zeroes the buffer handed on."""
+    nxt.zero_()
+    return 0
+
+
+def test_histogram_output_is_the_buffer_the_last_call_zeroed():
+    """Each call's output is the buffer handed on by the previous call on
+    the same (device, stream), which that call's kernel zeroed; a new
+    zeroed buffer is made only for the first call and for one that needs
+    more room, and the buffer handed on is sized to the call's request."""
+    dev = torch.device("cpu")
+    m = histogram.MIN_BUFFER
+    try:
+        out, err = histogram._launch_zeroed(dev, 7, 100, _zeroing_launch)
+        assert err == 0 and out.numel() == m and not out.any()
+        nxt = histogram._zeroed[(None, 7)]
+        assert nxt is not out and nxt.numel() == m
+        out2, _ = histogram._launch_zeroed(dev, 7, 50, _zeroing_launch)
+        assert out2 is nxt
+        out3, _ = histogram._launch_zeroed(dev, 7, 5 * m, _zeroing_launch)
+        assert out3 is not histogram._zeroed[(None, 7)]
+        assert out3.numel() == 5 * m and not out3.any()
+        assert histogram._zeroed[(None, 7)].numel() == 5 * m
+        out4, _ = histogram._launch_zeroed(dev, 7, 48, _zeroing_launch)
+        assert out4.numel() == 5 * m  # the larger buffer, handed on once
+        assert histogram._zeroed[(None, 7)].numel() == m
+        out5, _ = histogram._launch_zeroed(dev, 8, 50, _zeroing_launch)
+        assert out5 is not histogram._zeroed[(None, 7)]
+    finally:
+        histogram._zeroed.pop((None, 7), None)
+        histogram._zeroed.pop((None, 8), None)
+
+
+@pytest.mark.parametrize("fails", ["raises", "returns an error"])
+def test_histogram_hands_on_no_buffer_from_a_failed_launch(fails):
+    """A launch that raises or returns an error hands on no buffer, so
+    the next call's output is zeros, not the failed call's unzeroed
+    buffer."""
+    dev = torch.device("cpu")
+
+    def bad(out, nxt):
+        nxt.fill_(7)  # what an unzeroed buffer may hold
+        if fails == "raises":
+            raise ZeroDivisionError("building the kernel's arguments")
+        return 1
+
+    try:
+        histogram._launch_zeroed(dev, 9, 48, _zeroing_launch)
+        if fails == "raises":
+            with pytest.raises(ZeroDivisionError):
+                histogram._launch_zeroed(dev, 9, 48, bad)
+        else:
+            assert histogram._launch_zeroed(dev, 9, 48, bad)[1] == 1
+        assert (None, 9) not in histogram._zeroed
+        out, err = histogram._launch_zeroed(dev, 9, 48, _zeroing_launch)
+        assert err == 0 and not out.any()
+    finally:
+        histogram._zeroed.pop((None, 9), None)
+
+
+def test_histogram_checks_its_arguments_before_taking_a_buffer():
+    """The wrapper computes the kernel's scale and shift, which raise for
+    a vmax of -1 or one that is not a number, before it takes a buffer."""
+    src = inspect.getsource(histogram.histogram)
+    assert (src.index("ref.histogram_scale(") < src.index("_launch_zeroed(")
+            and src.index("byte_shift(") < src.index("_launch_zeroed("))
+    assert "is_current_stream_capturing" in src
+    with pytest.raises(ZeroDivisionError):
+        ref.histogram_scale(16, -1.0)
+
+
+WARP_HMATS = {
+    "projective": np.array([[0.9, 0.05, 3.0], [-0.04, 1.1, -2.0],
+                            [1e-3, -2e-3, 1.0]], np.float32),
+    # Z = 1 - x / 64 is 0 at column 64 (X / Z = inf, 0 / 0 on row 0)
+    "z crosses 0": np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                             [-2.0 ** -6, 0.0, 1.0]], np.float32),
+    # rows past 2^31 / W: y0 * W wraps modulo 2^32 from the second row on
+    "y0 * W wraps": np.array([[40.0, 0.0, -2000.0], [0.0, 3e7, 0.0],
+                              [0.0, 0.0, 1.0]], np.float32),
+}
+
+
+@pytest.mark.parametrize("which", list(WARP_HMATS))
+def test_warp_corner_offsets_wrap_to_the_exact_offset(which):
+    """The kernel computes a pixel's first-corner offset y0 * W + x0 in
+    32 bits modulo 2^32 (``corner_offset`` in ``csrc/warp.cu``) and adds
+    1, W and W + 1 for the other corners.  Wherever a corner lies inside
+    the source, that gives the corner's exact offset, for the plain
+    version's own (saturated, NaN -> 0) corner indices."""
+    h, w, oh, ow = 37, 61, 45, 100
+    m = torch.from_numpy(WARP_HMATS[which])
+    ys, xs = torch.meshgrid(torch.arange(oh, dtype=torch.float32),
+                            torch.arange(ow, dtype=torch.float32),
+                            indexing="ij")
+    rows = [ref.fma_f32(m[r, 1], ys, m[r, 0] * xs) + m[r, 2] for r in range(3)]
+    x0 = ref.to_int32_saturating(torch.floor(rows[0] / rows[2])).long()
+    y0 = ref.to_int32_saturating(torch.floor(rows[1] / rows[2])).long()
+    wrapped = ((y0 % 2**32) * w + (x0 % 2**32)) % 2**32
+    off = torch.where(wrapped >= 2**31, wrapped - 2**32, wrapped)
+    used = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            # the corner's int32 index, with the kernel's wrapping "+ 1"
+            yc = ((y0 + dy + 2**31) % 2**32) - 2**31
+            xc = ((x0 + dx + 2**31) % 2**32) - 2**31
+            inside = (yc >= 0) & (yc < h) & (xc >= 0) & (xc < w)
+            got = off + dy * w + dx
+            assert torch.equal(got[inside], (yc * w + xc)[inside])
+            used += int(inside.sum())
+    assert used > 0
 
 
 def test_transcode_rejects_factor_not_dividing_shape():
