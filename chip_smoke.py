@@ -59,8 +59,14 @@ and PyTorch built for CUDA.  In order it:
    512): f32 within 1e-4, bf16 within one bf16 ulp of the plain
    version's f32 result, NaN in the same places, and two calls on the
    same inputs equal bit for bit; the per-frame squared error at thirty
-   1080p planes in uint8 and f32 and at a ragged shape, within rtol
-   1e-5.  It times both, the paged attention's two kernels apart
+   1080p planes in uint8 and f32, at the main path's ninety (1080, 5760)
+   uint8 planes, at a ragged shape, all 0 against all 255, planes and
+   pointers off 16-byte alignment and f32 NaN and infinities: within
+   rtol 1e-5 (NaN and infinities in the same places), uint8 equal bit
+   for bit to the true integer sum rounded once to f32, a second call
+   the same bits, and one device operation in a warmed call.  It times
+   both (the squared error at the main path's shape, and at thirty 1080p
+   planes in uint8 and f32), the paged attention's two kernels apart
    (``torch.profiler``), and a gather of the pages followed by
    ``scaled_dot_product_attention`` (the paged attention's
    ``library_ms``).  ``ops.psnr`` of the main path's whole-clip read
@@ -499,15 +505,15 @@ def check_joint_kernels(device: str, reps: int, seed: int = 0):
         shape=list(one.shape), dtype="uint8")
     res["histogram"]["bound_ms"], res["histogram"]["bound_by"] = \
         histogram_bound(1, *FRAME_1080P, 16, 1)
-    check_one_kernel_a_call(lambda: ops.histogram(one, bins=16))
+    check_one_kernel_a_call(lambda: ops.histogram(one, bins=16), "histogram")
     res["launch_floor_ms"] = time_ms(lambda: torch.cuda._sleep(0), reps)
     return res
 
 
-def check_one_kernel_a_call(fn) -> None:
+def check_one_kernel_a_call(fn, name: str) -> None:
     """Profile one warmed call of ``fn`` and require that the device ran
-    exactly one operation in it, a histogram kernel (no zeroing kernel or
-    memset beside it)."""
+    exactly one operation in it, a kernel whose name holds ``name`` (no
+    zeroing kernel, fill or memset beside it)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -518,10 +524,10 @@ def check_one_kernel_a_call(fn) -> None:
         torch.cuda.synchronize()
     ops_seen = [e.name for e in prof.events()
                 if e.device_type == DeviceType.CUDA]
-    print(f"  histogram    device operations in one warmed call: {ops_seen}")
-    if len(ops_seen) != 1 or "histogram" not in ops_seen[0]:
-        raise AssertionError(f"histogram: one warmed call ran {ops_seen} on"
-                             " the device, not one histogram kernel")
+    print(f"  {name:12s} device operations in one warmed call: {ops_seen}")
+    if len(ops_seen) != 1 or name not in ops_seen[0]:
+        raise AssertionError(f"{name}: one warmed call ran {ops_seen} on"
+                             f" the device, not one {name} kernel")
 
 
 def check_kernels(device: str, shapes, reps: int, seed: int = 0):
@@ -927,6 +933,13 @@ QWEN3_DECODE = dict(b=8, hq=64, hkv=8, d=128, page=16)
 QWEN3_LENS = (1, 4096)  # the 8 lengths are spread evenly over this range
 PHI3_DECODE = dict(b=4, hq=32, hkv=32, d=96, page=16)
 MSE_1080P = (30, 1080, 1920)
+# ``ops.psnr`` and ``ops.mse`` of the main path's whole read: 90 frames of
+# 1080 rows of 1920 RGB pixels, as (T, H, W * C) uint8 planes
+MSE_PATH = (90, 1080, 5760)
+# (a, b) byte offsets: 16-byte aligned, at one offset mod 16, one mod 4
+# only, and at none
+MSE_OFFSETS = ((0, 0), (2, 2), (15, 15), (4, 8), (5, 9), (1, 0), (3, 7),
+               (15, 1))
 
 
 def sync(device) -> None:
@@ -987,7 +1000,9 @@ def paged_bound(q, kp, bt, sl):
 
 
 def mse_bound(a):
-    return _bound(2 * a.numel() * a.element_size(), 3 * a.numel())
+    # both planes read, one f32 a frame written; subtract, multiply, add
+    return _bound(2 * a.numel() * a.element_size() + 4 * a.shape[0],
+                  3 * a.numel())
 
 
 def gather_sdpa(q, kp, vp, bt, sl):
@@ -1154,41 +1169,137 @@ def check_serving_kernels(device: str, reps: int, seed: int = 0):
         lambda: ops.paged_decode_attention(*bf), reps)
     del f32, bf, phi, small, seams, cases
 
-    planes = {}
-    for dt in (torch.uint8, torch.float32):
-        a = torch.from_numpy(rng.integers(0, 256, MSE_1080P, dtype=np.uint8))
-        b = torch.from_numpy(np.clip(a.numpy().astype(np.int16)
-                                     + rng.integers(-9, 10, MSE_1080P), 0,
-                                     255).astype(np.uint8))
-        planes[dt] = (a.to(device).to(dt), b.to(device).to(dt))
+    res["mse"] = check_mse(device, reps, rng)
+    return res
+
+
+def exact_u8_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The true per-frame sum of squared differences of uint8 planes, in
+    int64, rounded to f32 once: what the kernel must give bit for bit."""
+    d = a.to(torch.int32) - b.to(torch.int32)
+    return (d * d).sum(dim=(1, 2), dtype=torch.int64).to(torch.float32)
+
+
+def offset_planes(rng, shape, off_a, off_b, dtype, device):
+    """Contiguous (N, H, W) views of ``dtype`` that start ``off_a`` and
+    ``off_b`` values into two fresh buffers (the buffers themselves lie
+    on 512-byte boundaries): planes and pointers off 16-byte alignment."""
+    n = int(np.prod(shape))
+    raw = rng.integers(0, 256, (2, n + 16))
+    bufs = torch.from_numpy(raw.astype(np.uint8)).to(device)
+    if dtype == torch.float32:
+        bufs = bufs.to(torch.float32) * 0.37
+    a = bufs[0][off_a:off_a + n].view(shape)
+    b = bufs[1][off_b:off_b + n].view(shape)
+    return a, b
+
+
+def mse_cases(rng, device):
+    """(label, a, b) for the squared-error kernel, and the timed pairs by
+    name.  The timed shapes, the main path's, the ragged one, all 0
+    against all 255, the seams of its load plan (planes of 16k + 1 and
+    16k + 15 bytes, a and b at offsets that share 16, only 4, or no
+    alignment), f32 off 16-byte alignment, and f32 NaN and infinities."""
+    gen = torch.Generator(device).manual_seed(int(rng.integers(2 ** 31)))
+
+    def noisy(shape):  # drawn on the device: the main path's is 1.1 GB
+        a = torch.randint(0, 256, shape, generator=gen, device=device,
+                          dtype=torch.uint8)
+        d = torch.randint(-9, 10, shape, generator=gen, device=device,
+                          dtype=torch.int16)
+        return a, (a.to(torch.int16) + d).clamp(0, 255).to(torch.uint8)
+
+    u8 = noisy(MSE_1080P)
+    f32 = tuple(x.to(torch.float32) for x in noisy(MSE_1080P))
+    path = noisy(MSE_PATH)
     ragged = torch.from_numpy(rng.standard_normal((5, 17, 130),
                                                   dtype=np.float32)).to(device)
-    checks = (("(30,1080,1920) uint8", *planes[torch.uint8]),
-              ("(30,1080,1920) f32", *planes[torch.float32]),
-              ("ragged (5,17,130) f32", ragged, ragged * 0.5 + 1.0),
-              ("ragged (5,17,130) uint8", planes[torch.uint8][0][:5, :17, :130]
-               .contiguous(), planes[torch.uint8][1][:5, :17, :130]
-               .contiguous()))
-    for what, a, b in checks:
+    cases = [
+        ("(30,1080,1920) uint8", *u8),
+        ("(30,1080,1920) f32", *f32),
+        ("ragged (5,17,130) f32", ragged, ragged * 0.5 + 1.0),
+        ("ragged (5,17,130) uint8", u8[0][:5, :17, :130].contiguous(),
+         u8[1][:5, :17, :130].contiguous()),
+        ("main path (90,1080,5760) uint8", *path),
+        ("(30,1080,1920) uint8 all 0 vs all 255",
+         torch.zeros(MSE_1080P, dtype=torch.uint8, device=device),
+         torch.full(MSE_1080P, 255, dtype=torch.uint8, device=device)),
+    ]
+    for shape in ((4, 17, 129), (3, 31, 97)):  # 2193 = 16k+1, 3007 = 16k+15
+        for off_a, off_b in MSE_OFFSETS:
+            label = ",".join(map(str, shape))
+            cases.append((f"({label}) uint8 at +{off_a}/+{off_b} bytes",
+                          *offset_planes(rng, shape, off_a, off_b,
+                                         torch.uint8, device)))
+    for off_a, off_b in ((1, 3), (2, 2), (0, 1)):
+        cases.append((f"(4,17,129) f32 at +{off_a}/+{off_b} values",
+                      *offset_planes(rng, (4, 17, 129), off_a, off_b,
+                                     torch.float32, device)))
+    a = torch.from_numpy(rng.standard_normal((3, 17, 130),
+                                             dtype=np.float32)).to(device)
+    b = a * 0.5
+    a[0, 3, 7] = float("nan")
+    a[1, 9, 100] = float("inf")
+    a[2, 0, 0], b[2, 0, 0] = float("inf"), float("inf")  # inf - inf: NaN
+    cases.append(("(3,17,130) f32 NaN, inf, inf - inf", a, b))
+    return cases, {"path": path, "u8": u8, "f32": f32}
+
+
+def _same_bits(x: torch.Tensor, y: torch.Tensor) -> bool:
+    return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def check_mse(device: str, reps: int, rng):
+    """Hold the squared-error kernel against its plain version on every
+    case of ``mse_cases``: within rtol 1e-5 (NaN and infinities in the
+    same places), uint8 equal bit for bit to the true sum rounded once
+    (``exact_u8_sum``), and a second call giving the same bits.  Times
+    uint8 at the main path's shape (the JSON line's figures) and at thirty
+    1080p planes, and f32 at thirty 1080p planes; one warmed call must run
+    one device operation, the kernel."""
+    res = {"max_abs_err": 0.0}
+    cases, timed = mse_cases(rng, device)
+    for what, a, b in cases:
         k = ops.mse_sum(a, b)
+        again = ops.mse_sum(a, b)
         p = ref.mse_sum(a, b)
-        rel = float(((k - p).abs() / p.abs().clamp(min=1e-30)).max())
-        err = float((k - p).abs().max())
-        ok = rel <= 1e-5
-        print(f"  mse            {what:44s} max rel {rel:.3g} (rtol 1e-5)"
-              f" {'ok' if ok else 'FAIL'}")
+        sync(device)
+        same = _same_bits(k, again)
+        places = torch.equal(torch.isnan(k), torch.isnan(p)) and torch.equal(
+            torch.isinf(k) & (k > 0), torch.isinf(p) & (p > 0))
+        fin = torch.isfinite(p)
+        kf, pf = k[fin], p[fin]
+        rel = float(((kf - pf).abs() / pf.abs().clamp(min=1e-30)).max()) \
+            if kf.numel() else 0.0
+        exact = a.dtype != torch.uint8 or _same_bits(k, exact_u8_sum(a, b))
+        ok = same and places and rel <= 1e-5 and exact
+        print(f"  mse          {what:44s} max rel {rel:.3g} (rtol 1e-5)"
+              f"{', = exact sum' if a.dtype == torch.uint8 else ''}"
+              f"{'' if same else ', two calls differ'}"
+              f"{'' if places else ', NaN/inf in other places'}"
+              f"{'' if exact else ', != exact sum'} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"mse {what}: kernel != plain (rel {rel})")
-        res["mse"]["max_abs_err"] = max(res["mse"]["max_abs_err"], err)
-    a, b = planes[torch.float32]
-    res["mse"].update(
-        ms=time_ms(lambda: ops.mse_sum(a, b), reps),
-        plain_ms=time_ms(lambda: ref.mse_sum(a, b), reps),
-        shape=list(MSE_1080P), dtype="f32")
-    res["mse"]["bound_ms"], res["mse"]["bound_by"] = mse_bound(a)
-    a8, b8 = planes[torch.uint8]
-    res["mse_uint8_ms"] = time_ms(lambda: ops.mse_sum(a8, b8), reps)
-    res["mse_uint8_bound_ms"] = mse_bound(a8)[0]
+            raise AssertionError(f"mse {what}: kernel != plain (rel {rel},"
+                                 f" repeat {same}, NaN/inf {places},"
+                                 f" exact {exact})")
+        if kf.numel():
+            res["max_abs_err"] = max(res["max_abs_err"],
+                                     float((kf - pf).abs().max()))
+    del cases
+    path, u8, f32 = timed["path"], timed["u8"], timed["f32"]
+    res.update(
+        ms=time_ms(lambda: ops.mse_sum(*path), reps),
+        plain_ms=time_ms(lambda: ref.mse_sum(*path), reps),
+        shape=list(MSE_PATH), dtype="uint8")
+    res["bound_ms"], res["bound_by"] = mse_bound(path[0])
+    res["also"] = {
+        "uint8_1080p_ms": time_ms(lambda: ops.mse_sum(*u8), reps),
+        "uint8_1080p_bound_ms": mse_bound(u8[0])[0],
+        "f32_1080p_ms": time_ms(lambda: ops.mse_sum(*f32), reps),
+        "f32_1080p_plain_ms": time_ms(lambda: ref.mse_sum(*f32), reps),
+        "f32_1080p_bound_ms": mse_bound(f32[0])[0],
+    }
+    check_one_kernel_a_call(lambda: ops.mse_sum(*u8), "mse")
     return res
 
 
@@ -1481,9 +1592,12 @@ def main() -> int:
     print(f"  yardstick: gather + scaled_dot_product_attention at the same"
           f" bf16 qwen3 shape {snum['sdpa_ms']:.4f} ms (max|d| vs plain"
           f" {snum['sdpa_err']:.3g}); paged_attention in f32"
-          f" {snum['paged_attention_f32_ms']:.4f} ms; mse of uint8 planes"
-          f" {snum['mse_uint8_ms']:.4f} ms (bound"
-          f" {snum['mse_uint8_bound_ms']:.4f} ms) [{card}]")
+          f" {snum['paged_attention_f32_ms']:.4f} ms [{card}]")
+    m = knum["mse"]["also"]
+    print(f"  mse at {list(MSE_1080P)}: uint8 {m['uint8_1080p_ms']:.4f} ms"
+          f" (bound {m['uint8_1080p_bound_ms']:.4f}), f32"
+          f" {m['f32_1080p_ms']:.4f} ms (bound {m['f32_1080p_bound_ms']:.4f},"
+          f" plain {m['f32_1080p_plain_ms']:.4f}) [{card}]")
 
     print("main path: VSS write/read of a 1080p 90-frame clip", flush=True)
     clip = synthesize_road(90, width=1920, height=1080, seed=0)
@@ -1584,6 +1698,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            **r.get("also", {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -141,6 +141,15 @@ def ptxas_log(name: str) -> str:
     return path.read_text(errors="replace") if path.exists() else ""
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (a launch plan's
+    input; the only device query the wrappers make)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.vss_error_string(err).decode(errors="replace")

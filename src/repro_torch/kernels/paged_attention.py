@@ -26,7 +26,6 @@ on the device.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -53,11 +52,6 @@ def plan_splits(b: int, hkv: int, max_len: int, n_sm: int) -> tuple:
     chunk = max(-(-max_len // want), -(-max_len // MAX_SPLITS), 1)
     chunk = -(-chunk // TILE) * TILE
     return max(1, -(-max_len // chunk)), chunk
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib():
@@ -121,7 +115,7 @@ def paged_decode_attention(
     if maxp == 0 or page == 0:
         return out.zero_()  # ref.py's sum over no position at all
     n_split, chunk = plan_splits(b, hkv, maxp * page,
-                                 _sm_count(q.device.index))
+                                 _build.sm_count(q.device.index))
     # per (sequence, query head, split): running max, sum, then D sums
     n = b * hq * n_split
     ws = torch.empty(n * (d + 2), dtype=torch.float32, device=q.device)

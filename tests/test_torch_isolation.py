@@ -14,7 +14,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "chip_breakdown.py"]
+    REPO / "chip_smoke.py", REPO / "chip_breakdown.py",
+    REPO / "chip_mse_variants.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -776,6 +776,192 @@ def test_new_wrappers_on_cpu_count_plain_calls_not_launches():
     _build.reset_plain_counts()
 
 
+# -- the squared-error kernel's launch plan and exact uint8 sums -----------
+
+# MSE_SHAPES, the main path's ninety (1080, 5760) planes, planes of
+# 16k + 1 and 16k + 15 bytes, and two whose vectors a cluster of 8 does
+# not divide evenly
+MSE_PLAN_SHAPES = MSE_SHAPES + [(90, 1080, 5760), (4, 17, 129), (3, 31, 97),
+                                (3, 97, 1001), (2, 1081, 1919)]
+N_SM = 132  # an H100 SXM
+
+
+def _block_spans(p, plane_bytes, frame_addr):
+    """The byte ranges of one frame that each block of its cluster reads,
+    as ``mse_kernel`` in ``csrc/mse.cu`` computes them from the plan and
+    the frame's address in a: its share of the whole vectors after the
+    head, and for the last block the head and the tail values."""
+    head = min(-frame_addr % p.vec, plane_bytes)
+    nvec = (plane_bytes - head) // p.vec
+    tail = plane_bytes - head - nvec * p.vec
+    spans = []
+    for rank in range(p.cluster):
+        begin = rank * p.chunk
+        end = min(begin + p.chunk, nvec)
+        mine = [(head + begin * p.vec, head + end * p.vec)] if end > begin \
+            else []
+        if rank == p.cluster - 1:
+            mine += [(0, head), (plane_bytes - tail, plane_bytes)]
+        spans.append([s for s in mine if s[1] > s[0]])
+    return head, spans
+
+
+@pytest.mark.parametrize("esize", [1, 4])
+@pytest.mark.parametrize("n,h,w", MSE_PLAN_SHAPES)
+def test_mse_plan_covers_every_value_once(n, h, w, esize):
+    """For a and b at every offset 0-15 from a 512-byte boundary (f32:
+    every whole value), each frame's bytes are read exactly once, by
+    vector loads at addresses of a and b aligned to the load, and a
+    thread's uint32 never sums more than ``CAP_VALUES`` uint8 values."""
+    plane_bytes = h * w * esize
+    base_a, base_b = 1 << 20, 3 << 20
+    for off_a in range(0, 16, esize):
+        for off_b in range(0, 16, esize):
+            pa, pb = base_a + off_a, base_b + off_b
+            p = mse.plan(n, h * w, esize, pa, pb, N_SM)
+            want = 16 if off_a == off_b else 4 if (off_a - off_b) % 4 == 0 \
+                else 1
+            assert p.vec == want and p.unroll == mse.UNROLL[p.vec]
+            assert p.cluster in (1, 2, 4, 8)
+            assert p.chunk * p.cluster >= plane_bytes // p.vec
+            if esize == 1:  # a step's uint8 values, or a head and a tail
+                assert max(p.unroll * p.vec, 2) <= mse.CAP_VALUES
+            for frame in range(n):
+                fa, fb = pa + frame * plane_bytes, pb + frame * plane_bytes
+                head, spans = _block_spans(p, plane_bytes, fa)
+                assert (fa + head) % p.vec == 0 and (fb + head) % p.vec == 0
+                flat = sorted(s for blk in spans for s in blk)
+                at = 0
+                for lo, hi in flat:
+                    assert lo == at, (off_a, off_b, frame, flat)
+                    at = hi
+                assert at == plane_bytes
+
+
+def test_mse_plan_at_the_timed_and_path_shapes():
+    """Aligned planes on 132 SMs: thirty 1080p planes take clusters of 8
+    (240 blocks), the main path's ninety (1080, 5760) planes clusters of
+    4 (360 blocks), each block whole 16-byte vectors."""
+    assert tuple(mse.plan(30, 1080 * 1920, 1, 0, 1 << 30, N_SM)) == \
+        (16, 4, 8, 16200)
+    assert tuple(mse.plan(90, 1080 * 5760, 1, 0, 1 << 30, N_SM)) == \
+        (16, 4, 4, 97200)
+    assert tuple(mse.plan(30, 1080 * 1920, 4, 0, 1 << 30, N_SM)) == \
+        (16, 4, 8, 64800)
+    # one tiny plane: one block; a and b one byte apart: byte loads
+    assert mse.plan(1, 7, 1, 0, 512, N_SM).cluster == 1
+    assert mse.plan(2, 4096, 1, 1, 512, N_SM).vec == 1
+
+
+def test_mse_plan_refuses_misaligned_f32():
+    with pytest.raises(ValueError, match="aligned"):
+        mse.plan(2, 64, 4, 2, 0, N_SM)
+
+
+def test_mse_plan_constants_are_the_kernels():
+    """The plan's threads, cluster limit, cap and unroll table are the
+    ones ``csrc/mse.cu`` is built with (the kernel refuses another
+    unroll)."""
+    import re
+
+    src = (_build.CSRC_DIR / "mse.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"{name} = (\d+);", src).group(1))
+
+    assert const("kThreads") == mse.THREADS
+    assert const("kMaxCluster") == mse.MAX_CLUSTER
+    assert const("kCapValues") == mse.CAP_VALUES
+    assert mse.CAP_VALUES * 255 ** 2 < 2 ** 32
+    unroll = re.search(r"return vec == 16 \? (\d+) : (\d+);", src)
+    assert mse.UNROLL == {16: int(unroll.group(1)), 4: int(unroll.group(2)),
+                          1: int(unroll.group(2))}
+
+
+def test_word_squared_difference_is_exact_in_uint32():
+    """The kernel's word sum dp4a(d, d) of d = vabsdiff4(x, y), the four
+    bytes' |x_i - y_i|, is the sum of their squared differences, extremes
+    included; and a thread's uint32 of ``CAP_VALUES`` values at 255^2
+    each does not wrap."""
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 256, (4096, 4)).astype(np.uint32)
+    y = rng.integers(0, 256, (4096, 4)).astype(np.uint32)
+    x[:3], y[:3] = [[0] * 4, [255] * 4, [0, 255, 0, 255]], \
+        [[255] * 4, [0] * 4, [255, 0, 255, 0]]
+    d = np.maximum(x, y) - np.minimum(x, y)  # vabsdiff4: bytes stay bytes
+    assert d.max() <= 255
+    got = (d * d).sum(axis=1, dtype=np.uint32)  # dp4a(d, d, 0)
+    want = ((x.astype(np.int64) - y.astype(np.int64)) ** 2).sum(axis=1)
+    np.testing.assert_array_equal(got.astype(np.int64), want)
+    assert mse.CAP_VALUES * 255 ** 2 <= np.iinfo(np.uint32).max
+
+
+def _mse_extreme(case):
+    shape = (1, 1080, 5760)
+    rng = np.random.default_rng(23)
+    if case == "0 vs 255":
+        return np.zeros(shape, np.uint8), np.full(shape, 255, np.uint8)
+    a = rng.integers(0, 256, shape).astype(np.uint8)
+    if case == "equal":
+        return a, a.copy()
+    return a, rng.integers(0, 256, shape).astype(np.uint8)
+
+
+# rtol of the exact sum against the JAX reference's f32 sum; None where
+# XLA's CPU sum of the frame is itself farther than 1e-5 from the true
+# sum (1.385e-5 for a full frame of 0 against 255), so that the exact
+# sum, being the nearer, cannot be within 1e-5 of it
+MSE_EXTREMES = {"0 vs 255": None, "equal": 1e-5, "random": 1e-5}
+
+
+@pytest.mark.parametrize("case", list(MSE_EXTREMES))
+def test_mse_exact_sum_rounded_once_within_plain_tolerance(case):
+    """What the kernel gives for uint8, the true integer sum rounded to f32
+    once, is within half an f32 ulp of the true sum, never farther from it
+    than the JAX reference's f32 sum, and within rtol 1e-5 of the port's
+    plain version, which is what ``chip_smoke.py`` holds the kernel to."""
+    a, b = _mse_extreme(case)
+    true = ((a.astype(np.int64) - b.astype(np.int64)) ** 2).sum(axis=(1, 2))
+    exact = true.astype(np.float32)  # round to nearest, as __ull2float_rn
+    err = np.abs(exact.astype(np.float64) - true.astype(np.float64))
+    assert np.all(err <= np.spacing(exact).astype(np.float64) / 2)
+    plain = ops.mse_sum(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(exact, plain, rtol=1e-5)
+    j = np.asarray(jref.mse_sum(jnp.asarray(a), jnp.asarray(b)))
+    assert np.all(err <= np.abs(j.astype(np.float64) - true))
+    if MSE_EXTREMES[case] is not None:
+        np.testing.assert_allclose(exact, j, rtol=MSE_EXTREMES[case])
+
+
+def test_mse_on_cpu_counts_one_plain_call_and_no_launch(monkeypatch):
+    """A CPU tensor takes the plain version: one plain call, no launch,
+    and no launch plan."""
+    def no_plan(*args):
+        raise AssertionError("planned a launch for a CPU tensor")
+
+    monkeypatch.setattr(mse, "plan", no_plan)
+    a, b = map(torch.from_numpy, _mse_inputs(29, 3, 17, 129, np.uint8))
+    launches = _build.launch_counts()
+    _build.reset_plain_counts()
+    got = mse.mse_sum(a, b)
+    assert _build.plain_counts() == {"mse": 1}
+    assert _build.launch_counts() == launches
+    torch.testing.assert_close(got, ref.mse_sum(a, b), rtol=0, atol=0)
+    _build.reset_plain_counts()
+
+
+def test_mse_wrapper_never_syncs_with_the_device():
+    """The wrapper plans from shapes and pointers: it never reads a device
+    tensor on the host (``.item()``, ``.cpu()``, ``.tolist()``,
+    ``.numpy()``)."""
+    import ast
+
+    tree = ast.parse(inspect.getsource(mse))
+    called = {n.func.attr for n in ast.walk(tree)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)}
+    assert not called & {"item", "cpu", "tolist", "numpy"}
+
+
 def test_every_kernel_has_a_source_in_the_build():
     assert {"paged_attention", "mse"} <= set(_build.SOURCES)
     for name in _build.SOURCES:
