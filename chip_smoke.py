@@ -37,7 +37,24 @@ and PyTorch built for CUDA.  In order it:
    Each of those seven paths runs with the launch counts set to 0 just
    before it and read just after, and in the CUDA run each must have
    launched exactly the kernels its plan needs;
-5. drives joint compression (§5.1) in a fresh store, on ``"cuda"`` and
+5. drives the rest of the storage layer under ``VSS`` (the backends
+   phase): the main path's clip and a second one (seed 1), 6 GOPs, are
+   written as ``hevc`` with two ingest workers and read back (whole
+   clips and ``t=(0.5, 1.7)``, past the cache) in a ``local`` store and
+   on ``tiered:remote`` (write-back with its journal over the loopback
+   object server, a hot tier of a third of the bytes: spills and
+   flushes; a close, a reopen and the reads again; one adaptive tick
+   after one window is read hot, which must demote; a ``/metrics``
+   scrape showing the ``tiered`` and ``remote`` operations, spills,
+   flushes and journal appends), ``replicated:3:2:2`` (one child's
+   directory deleted, reads through the fallbacks, ``VSS.scrub``
+   restoring every replica, the reads again) and ``sharded:4``.  Every
+   read must equal the local store's (whose reads equal the main
+   path's), every GOP object the local store's under the same catalog
+   path, and every write and read must launch what the local store's
+   did; ``ops.psnr`` of each store's whole read runs ``mse``.  It
+   prints every step's time and launches;
+6. drives joint compression (§5.1) in a fresh store, on ``"cuda"`` and
    then on ``"cpu"``: writes two 1080p 30-frame camera pairs as hevc,
    ``apply_joint_compression`` over pair A (side by side: joined) and
    pair B (with perspective: aborted, as the reference does), then reads
@@ -47,7 +64,7 @@ and PyTorch built for CUDA.  In order it:
    plain versions; pair A's sides must read back at 24 dB or more.  It
    prints each step's time and the compress steps' split (decode, host
    features, warp, histogram, segment encode);
-6. holds the serving path's kernels against their plain versions on the
+7. holds the serving path's kernels against their plain versions on the
    card: the paged decode attention at Qwen3-32B's decode shape (8
    sequences of 1 to 4096 tokens, 64 query and 8 KV heads of 128, pages
    of 16) in bf16 and f32, at Phi-3-mini's (32 and 32 heads of 96) and
@@ -72,7 +89,7 @@ and PyTorch built for CUDA.  In order it:
    ``library_ms``).  ``ops.psnr`` of the main path's whole-clip read
    against its source must agree with its plain version and with
    ``exact_mse`` frame by frame;
-7. drives the serving engine (``ServingEngine``, a paged KV pool of 1024
+8. drives the serving engine (``ServingEngine``, a paged KV pool of 1024
    pages of 16 tokens) over a Qwen3-32B-width model cut to 16 of its 64
    layers, with random weights drawn on the card from seed 0: seven
    prompts of 128 to 1024 tokens (two share their first 512), 32 new
@@ -83,7 +100,7 @@ and PyTorch built for CUDA.  In order it:
    must be what the pool's page arithmetic predicts; the paged attention
    must launch once per layer and decode round; it prints prefill time
    per request, time to first token, and decode-round times;
-8. prints one JSON line of per-kernel numbers, the card line, and the
+9. prints one JSON line of per-kernel numbers, the card line, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises, and the script exits non-zero without the
@@ -94,11 +111,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import sqlite3
 import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 import numpy as np
 
@@ -112,7 +131,13 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch import codec  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import features, fingerprint, joint  # noqa: E402
-from repro_torch.core.config import VSSConfig  # noqa: E402
+from repro_torch import storage as _storage  # noqa: E402
+from repro_torch.core.config import (  # noqa: E402
+    AdaptiveConfig,
+    IngestConfig,
+    TieringConfig,
+    VSSConfig,
+)
 from repro_torch.core.deferred import is_wrapped, unwrap_bytes  # noqa: E402
 from repro_torch.core.quality import exact_mse, exact_psnr  # noqa: E402
 from repro_torch.core.store import VSS  # noqa: E402
@@ -129,6 +154,7 @@ from repro_torch.kernels import (  # noqa: E402
     ref,
 )
 from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the f32 rate outside the
@@ -613,6 +639,30 @@ def check_kernels(device: str, shapes, reps: int, seed: int = 0):
     return res
 
 
+class _Steps:
+    """Runs named steps, each with the launch counts set to 0 just before
+    it and read just after (the plain versions' calls on the CPU), and
+    keeps each step's wall time."""
+
+    def __init__(self, device: str):
+        self.device = device
+        self.secs = {}
+        self.launches = {}
+
+    def __call__(self, name: str, fn):
+        ops.reset_launch_counts()
+        ops.reset_plain_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+        self.secs[name] = time.perf_counter() - t0
+        # on the CPU, the plain versions' calls stand in for launches
+        self.launches[name] = (ops.launch_counts() if self.device == "cuda"
+                               else ops.plain_counts())
+        return result
+
+
 def reads_for(clip: np.ndarray):
     """The main path's reads, each with the codecs its plan must read from
     and the kernel launches it must make, given the GOPs written and the
@@ -644,18 +694,9 @@ def drive_store(root: str, clip: np.ndarray, device: str):
     Returns every output, the wall times, the counts per path and the
     codecs each read's plan read from."""
     vss = VSS(root, config=VSSConfig(device=device, backend="local"))
-    out = {"reads": {}, "secs": {}, "launches": {}, "sources": {},
-           "spans": {}}
-
-    def path(name, fn):
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        result = fn()
-        if device == "cuda":
-            torch.cuda.synchronize()
-        out["secs"][name] = time.perf_counter() - t0
-        out["launches"][name] = ops.launch_counts()
-        return result
+    path = _Steps(device)
+    out = {"reads": {}, "secs": path.secs, "launches": path.launches,
+           "sources": {}, "spans": {}}
 
     path("write", lambda: vss.write("road", clip, codec="hevc"))
     gops = vss.catalog.gops_for(vss.catalog.get_original_id("road"))
@@ -748,6 +789,186 @@ def compare_runs(gpu, cpu, clip: np.ndarray) -> None:
         raise AssertionError("transcode_gop: cuda blob != cpu blob")
     hdr = codec.parse_gop_header(gpu["transcode_gop"])
     print(f"  transcode_gop -> {hdr[0]} {hdr[1]}: blob equal on cuda and cpu")
+
+
+# -- the backends phase: the rest of the storage layer under VSS ---------
+
+BACKENDS = ("tiered:remote", "replicated:3:2:2", "sharded:4")
+# (step name, read keywords): every read skips the cache, so each one
+# fetches its GOPs from the backend and decodes them on the card
+BACKEND_READS = (("whole clip", {}), ("t=(0.5, 1.7)", {"t": (0.5, 1.7)}))
+HOT_WINDOW = {"t": (0.0, 0.5)}  # the window the adaptive tick keeps hot
+COLD_SLEEP_S = 3.0  # six half-lives: every epoch read before it goes cold
+ADAPTIVE = dict(enabled=True, half_life_s=0.5, interval_s=0.5,
+                min_view_score=1e9)  # tiering alone, no view materialized
+
+
+def _gop_objects(vss) -> dict:
+    """{catalog path: stored bytes} of every GOP the store indexes."""
+    return {g.path: vss.backend.get(g.path) for g in vss.catalog.all_gops()}
+
+
+def _read_all(vss, videos, step, frames, prefix=""):
+    for name in videos:
+        for what, kw in BACKEND_READS:
+            frames[f"{prefix}read {name} {what}"] = step(
+                f"{prefix}read {name} {what}",
+                lambda: vss.read(name, cache=False, **kw).frames)
+
+
+def _scrape(url: str) -> dict:
+    """{sample with its labels: value} of a live ``/metrics``."""
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as resp:
+        body = resp.read().decode()
+    out = {}
+    for line in body.splitlines():
+        if line and not line.startswith("#"):
+            head, value = line.rsplit(" ", 1)
+            out[head] = float(value)
+    return out
+
+
+def _tiered_remote_steps(vss, root, config, videos, step, frames):
+    """Close (the write-back barrier), reopen with the adaptive policy
+    on, read everything again, then heat one window and run one tick,
+    and scrape the store's metrics.  Returns the new store, the tick's
+    report and the metric samples."""
+    step("close (flush barrier)", vss.close)
+    vss = step("reopen", lambda: VSS(root, config=dataclasses.replace(
+        config, adaptive=AdaptiveConfig(**ADAPTIVE))))
+    _read_all(vss, videos, step, frames, prefix="reopened ")
+    time.sleep(COLD_SLEEP_S)
+    for i in range(5):
+        step(f"hot window read {i}",
+             lambda: vss.read("road", cache=False, **HOT_WINDOW).frames)
+    report = step("adapt tick", vss.adapt)
+    if not report.get("demoted", 0) > 0:
+        raise AssertionError(f"adapt demoted nothing: {report}")
+    samples = step("metrics scrape",
+                   lambda: _scrape(vss.start_metrics_server().url))
+    for kind in ("tiered", "remote"):
+        n = sum(v for k, v in samples.items() if k.startswith(
+            "vss_backend_ops_total{") and f'kind="{kind}"' in k)
+        if not n > 0:
+            raise AssertionError(f"/metrics shows no {kind} operations")
+    for family in ("vss_cache_spills_total",
+                   "vss_cache_writeback_flushes_total",
+                   "vss_journal_appends_total"):
+        if not samples.get(family, 0) > 0:
+            raise AssertionError(f"/metrics: {family} is not above 0")
+    return vss, report, samples
+
+
+def _replicated_steps(vss, videos, step, frames):
+    """Lose one child's directory, read through the fallbacks, scrub,
+    and read again.  Returns the fallback count and the scrub report."""
+    rb = _storage.unwrap(vss.backend, _storage.ReplicatedBackend)
+    rb.quiesce()
+    victim = rb.children[0].root
+    shutil.rmtree(victim)
+    os.makedirs(victim)
+    before = rb.stats.fallback_reads
+    _read_all(vss, videos, step, frames, prefix="degraded ")
+    fallbacks = rb.stats.fallback_reads - before
+    if not fallbacks > 0:
+        raise AssertionError("no read fell back past the lost child")
+    report = step("scrub", vss.scrub)
+    counts = {g.path: rb.replica_count(g.path)
+              for g in vss.catalog.all_gops()}
+    short = {p: n for p, n in counts.items() if n != rb.replicas}
+    if short or not report.replicas_repaired > 0 or report.gops_dropped:
+        raise AssertionError(f"scrub left {short} under-replicated: {report}")
+    _read_all(vss, videos, step, frames, prefix="scrubbed ")
+    return fallbacks, report
+
+
+def drive_backend(spec: str, root: str, videos, device: str,
+                  hot_bytes=None):
+    """One store on ``spec``: both videos written as hevc with two ingest
+    workers, every read of `BACKEND_READS`, and the spec's own steps.
+    Returns frames, objects, wall times, launch counts and notes."""
+    step = _Steps(device)
+    frames = {}
+    config = VSSConfig(device=device, backend=spec,
+                       registry=MetricsRegistry(),
+                       ingest=IngestConfig(workers=2))
+    if hot_bytes is not None:
+        config = dataclasses.replace(
+            config, tiering=TieringConfig(hot_bytes=hot_bytes))
+    vss = step("open", lambda: VSS(root, config=config))
+    for name, clip in videos.items():
+        step(f"write {name}",
+             lambda: vss.write(name, clip, fps=30.0, codec="hevc"))
+    _read_all(vss, videos, step, frames)
+    objects = _gop_objects(vss)
+    notes = {}
+    if spec == "tiered:remote":
+        vss, notes["adapt"], samples = _tiered_remote_steps(
+            vss, root, config, videos, step, frames)
+        notes["metrics"] = {k: v for k, v in samples.items() if k in (
+            "vss_cache_spills_total", "vss_cache_writeback_flushes_total",
+            "vss_journal_appends_total", "vss_journal_fsyncs_total",
+            "vss_remote_connections_created_total")}
+    elif spec.startswith("replicated"):
+        notes["fallback reads"], scrub = _replicated_steps(
+            vss, videos, step, frames)
+        notes["scrub"] = {"replicas_repaired": scrub.replicas_repaired,
+                          "gops_dropped": scrub.gops_dropped}
+    vss.close()
+    return {"frames": frames, "objects": objects, "secs": step.secs,
+            "launches": step.launches, "notes": notes}
+
+
+def check_backend(spec: str, run, local) -> None:
+    """Every read of ``run`` (again after a reopen, a lost child or a
+    scrub) equals the ``local`` store's same read, every GOP object is
+    the local store's object under the same catalog path, and each write
+    and read launched what the local store's did."""
+    for name, frames in run["frames"].items():
+        base = name.split("read ", 1)[1]
+        want = local["frames"][f"read {base}"]
+        if frames.shape != want.shape or not np.array_equal(frames, want):
+            raise AssertionError(f"{spec}: {name} != the local store's")
+        got = run["launches"][name]
+        if got != local["launches"][f"read {base}"]:
+            raise AssertionError(
+                f"{spec}: {name} launched {got}, the local store's read"
+                f" {local['launches'][f'read {base}']}")
+    for name, counts in local["launches"].items():
+        if name.startswith("write") and run["launches"][name] != counts:
+            raise AssertionError(
+                f"{spec}: {name} launched {run['launches'][name]}, the"
+                f" local store's {counts}")
+    if run["objects"].keys() != local["objects"].keys():
+        raise AssertionError(f"{spec}: catalog paths differ from local's")
+    bad = [p for p, b in run["objects"].items() if b != local["objects"][p]]
+    if bad:
+        raise AssertionError(f"{spec}: objects differ from local's: {bad}")
+    print(f"  {spec}: {len(run['frames'])} reads equal the local store's,"
+          f" {len(run['objects'])} GOP objects equal byte for byte,"
+          " launches equal in every write and read"
+          + "".join(f"; {k} {v}" for k, v in run["notes"].items()))
+
+
+def drive_backends(root: str, videos, device: str, main_frames=None):
+    """The backends phase: a ``local`` store, then one store on each of
+    `BACKENDS`, the tiered one with a hot tier of a third of the bytes
+    the local store holds.  ``main_frames`` ({read name: frames} of the
+    main path's CUDA run) ties the local store to that run.  Returns
+    {spec: run}."""
+    runs = {"local": drive_backend("local", os.path.join(root, "local"),
+                                   videos, device)}
+    local = runs["local"]
+    for name, frames in (main_frames or {}).items():
+        if not np.array_equal(local["frames"][f"read road {name}"], frames):
+            raise AssertionError(f"local read road {name} != the main path's")
+    hot_bytes = sum(len(b) for b in local["objects"].values()) // 3
+    for spec in BACKENDS:
+        runs[spec] = drive_backend(
+            spec, os.path.join(root, spec.replace(":", "_")), videos,
+            device, hot_bytes=hot_bytes if spec.startswith("tiered") else None)
+        check_backend(spec, runs[spec], local)
+    return runs
 
 
 # -- the joint path (§5.1): two camera pairs at 1080p -------------------
@@ -1626,6 +1847,29 @@ def main() -> int:
         print(f"  spans of read {name}: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in spans.items()))
 
+    print("backends phase: the main path's clip and a second one (seed 1),"
+          f" 6 GOPs a store, on local and {', '.join(BACKENDS)}", flush=True)
+    videos = {"road": clip, "road1": synthesize_road(
+        90, width=1920, height=1080, seed=1)}
+    main_frames = {"whole clip": gpu["reads"]["whole clip as rgb"][0],
+                   "t=(0.5, 1.7)": gpu["reads"]["t=(0.5, 1.7)"][0]}
+    backend_launches = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d_b:
+        bruns = drive_backends(d_b, videos, "cuda", main_frames)
+    backends_s = time.perf_counter() - t0
+    for spec, run in bruns.items():
+        for name, secs in run["secs"].items():
+            print(f"  {spec} {name}: {secs:.3f} s, launches"
+                  f" {run['launches'][name]} [{card}]")
+        print(f"  {spec}: ops.psnr of its whole read of road vs source")
+        _p, bpsnr = psnr_of_read(run["frames"]["read road whole clip"], clip)
+        run["launches"]["psnr of the whole read"] = bpsnr
+        backend_launches.update({f"backends {spec} {k}": v
+                                 for k, v in run["launches"].items()})
+    print(f"  backends phase: {backends_s:.1f} s wall [{card}]")
+    del videos, bruns
+
     print(f"joint path: two 1080p camera pairs of {JOINT_FRAMES} frames",
           flush=True)
     t0 = time.perf_counter()
@@ -1687,6 +1931,7 @@ def main() -> int:
     paths = dict(gpu["launches"])
     paths.update({f"joint {k}": v for k, v in jgpu["launches"].items()})
     paths["psnr of the whole read"] = psnr_launches
+    paths.update(backend_launches)
     paths["serving run"] = serving_launches
     for name, (source, replaces) in KERNELS.items():
         r = knum[name]

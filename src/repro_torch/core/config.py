@@ -43,13 +43,9 @@ from repro_torch.core import deferred as _deferred
 from repro_torch.core import ingest as _ingest
 from repro_torch.core.cache import CachePolicy
 from repro_torch.obs import DEFAULT_TRACE_CAPACITY
-
-# defaults of storage modules this package does not port yet (the
-# journal, request signing and the tiered backend); the values are the
-# reference's, so one config document means the same in both packages
-DEFAULT_SEGMENT_BYTES = 16 * 1024 * 1024
-DEFAULT_SIG_TTL_S = 300.0
-DEFAULT_HOT_BYTES = 256 * 1024 * 1024
+from repro_torch.storage.journal import DEFAULT_SEGMENT_BYTES
+from repro_torch.storage.signing import DEFAULT_SIG_TTL_S
+from repro_torch.storage.tiered import DEFAULT_HOT_BYTES
 
 ENV_PREFIX = "VSS"
 

@@ -513,9 +513,67 @@ class AdaptivePolicy:
 
     # -- seam 2: tier placement --------------------------------------------
     def _retier(self, report: Dict[str, Any]) -> None:
-        """Tier placement acts on a tiered backend, which this package
-        does not build yet (ROADMAP Queue 1 item 3): nothing to move."""
-        return
+        from repro_torch.storage import TieredBackend, unwrap
+
+        vss = self.vss
+        tiered = unwrap(vss.backend, TieredBackend)
+        if tiered is None:
+            return
+        hot_paths: List[str] = []
+        cold_paths: List[str] = []
+        for name in self.profiler.video_names():
+            scores = self.profiler.bucket_scores(name)
+            if not scores:
+                continue
+            hot_b = [b for b, s in scores.items() if s >= 1.0]
+            cold_b = [b for b, s in scores.items()
+                      if s <= self.cfg.cold_score]
+            for p in vss.catalog.physicals_for(name):
+                for b in hot_b:
+                    t0, t1 = self.profiler.bucket_span(b)
+                    f0, f1 = p.frame_at(t0), p.frame_at(t1)
+                    hot_paths.extend(
+                        g.path for g in vss.catalog.gops_in_range(
+                            p.physical_id, f0, f1)
+                        if g.tile_sizes is None and g.joint_ref is None
+                    )
+                for b in cold_b:
+                    t0, t1 = self.profiler.bucket_span(b)
+                    f0, f1 = p.frame_at(t0), p.frame_at(t1)
+                    cold_paths.extend(
+                        g.path for g in vss.catalog.gops_in_range(
+                            p.physical_id, f0, f1)
+                        if g.tile_sizes is None and g.joint_ref is None
+                    )
+        hot_set = set(hot_paths)
+        cold_paths = [p for p in cold_paths if p not in hot_set]
+        if cold_paths:
+            n = tiered.demote(cold_paths)
+            self._c_demote.inc(n)
+            report["demoted"] = n
+        if hot_paths:
+            resident = set(tiered.hot_keys())
+            missing = [p for p in hot_paths if p not in resident]
+            # promotion budget: never churn more than a quarter of the
+            # hot tier per tick
+            budget = tiered.hot_bytes // 4
+            take: List[str] = []
+            for path in missing:
+                try:
+                    nb = tiered.stat(path).nbytes
+                except Exception:
+                    continue
+                if nb > budget:
+                    break
+                budget -= nb
+                take.append(path)
+            if take:
+                try:
+                    tiered.batch_get(take)  # fetches promote into hot
+                except Exception:
+                    take = []
+                self._c_promote.inc(len(take))
+            report["promoted"] = len(take)
 
     # -- seam 3: deferred compression scheduling ---------------------------
     def _schedule_deferred(self, report: Dict[str, Any]) -> None:

@@ -399,11 +399,23 @@ class VSS:
                 backend = _storage.make_backend(
                     backend, os.path.join(root, "objects"),
                     registry=self.registry,
+                    hot_bytes=config.tiering.hot_bytes,
+                    journal=config.tiering.journal,
+                    journal_segment_bytes=config.tiering.journal_segment_bytes,
+                    secret=(config.remote.secret.encode()
+                            if config.remote.secret else None),
+                    sig_ttl_s=config.remote.sig_ttl_s,
+                    ca_file=config.remote.ca_file,
                 )
             except BaseException:
                 self.catalog.close()
                 raise
         self.backend = backend
+        tiered = _storage.unwrap(backend, _storage.TieredBackend)
+        if tiered is not None:
+            # hot-tier spill ordering = the catalog's LRU_VSS sequence
+            # numbers; policy stays in cache.py / the catalog
+            tiered.set_priority_fn(self.catalog.lru_for_paths)
         # scarce-connection backends (RemoteBackend's socket pool) grow
         # to cover the ingest worker pool — at least one connection per
         # concurrently-publishing worker; a minimum hint, so it never
@@ -504,6 +516,10 @@ class VSS:
         if config.adaptive.enabled:
             self.adaptive = _profile.AdaptivePolicy(
                 self, self.profiler, config.adaptive)
+            if tiered is not None:
+                # heat-boosted spill order: same LRU_VSS base, but
+                # objects in hot intervals outrank every cold one
+                tiered.set_priority_fn(self.adaptive.priority_fn)
         # §3 planner / read-path telemetry (all no-ops when the registry
         # is disabled).  Counters are per-store handles: `stats()` reads
         # them back exactly, /metrics sums them across stores.
@@ -554,6 +570,7 @@ class VSS:
             "vss_tile_fetches_total",
             "tile objects fetched by the read path")
         self._last_scrub: Optional[Dict] = None
+        self._metrics_server: Optional[_storage.ObjectServer] = None
         # write listeners: callables invoked with the logical video name
         # whenever its stored state advances (a writer hands off a
         # publish window, a writer closes, a drop).  The serving tier's
@@ -1763,14 +1780,18 @@ class VSS:
 
     def start_metrics_server(
         self, *, host: str = "127.0.0.1", port: int = 0
-    ):
-        """Expose ``GET /metrics`` and ``GET /healthz`` over HTTP.  Not
-        ported to repro_torch yet: it serves through the reference's
-        HTTP object server (ROADMAP Queue 1 item 3)."""
-        raise NotImplementedError(
-            "the metrics server is not ported to repro_torch yet"
-            " (ROADMAP Queue 1 item 3, storage/httpserver.py)"
-        )
+    ) -> _storage.ObjectServer:
+        """Expose this store's ``GET /metrics`` (Prometheus text) and
+        ``GET /healthz`` (JSON) over HTTP.  Starts (once) a store-less
+        `ObjectServer` — object routes answer 503 — on a daemon thread;
+        the returned server's ``.url`` is the scrape target and
+        ``close()`` (or closing the store) shuts it down."""
+        if self._metrics_server is None:
+            self._metrics_server = _storage.ObjectServer(
+                None, host=host, port=port,
+                registry=self.registry, health=self.health,
+            )
+        return self._metrics_server
 
     def scrub(self, *, collect_orphans: bool = False):
         """On-demand integrity pass over every object the catalog
@@ -1855,6 +1876,9 @@ class VSS:
         return table
 
     def close(self):
+        if self._metrics_server is not None:
+            self._metrics_server.close()
+            self._metrics_server = None
         if self._ingest is not None:
             # land every queued publish window, then stop the workers —
             # close() is a store-wide durability barrier

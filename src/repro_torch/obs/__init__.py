@@ -9,6 +9,8 @@ exposition helpers.
 - `InstrumentedBackend` / `instrument_backend` — per-backend-kind op
   latency/bytes/error metrics, auto-applied by
   ``repro_torch.storage.make_backend`` (``instrument.py``).
+- ``python -m repro_torch.obs.dump`` — offline snapshots of a live
+  ``/metrics``+``/healthz`` endpoint or of this process' registry.
 
 Set ``VSS_TELEMETRY=0`` to disable the default registry process-wide
 (no-op handles, no instrumentation wrappers)."""

@@ -1,7 +1,7 @@
 """The port stands alone: ``src/repro_torch`` and the chip scripts import
 neither ``jax`` nor the JAX package ``repro`` (``repro_torch`` is not
-``repro``), the package works with both blocked (a store written and
-read, a smoke LM served), and without a card the default device raises
+``repro``), the package works with both blocked (stores written and
+read, one on ``tiered:remote``; a smoke LM served), and without a card the default device raises
 instead of running on the CPU."""
 import ast
 import os
@@ -69,6 +69,19 @@ def test_package_works_with_jax_and_reference_blocked(tmp_path):
         vss = VSS({str(tmp_path / "s")!r},
                   config=VSSConfig(device="cpu", backend="memory"))
         vss.write("v", clip, codec="tvc-ll")
+        assert np.array_equal(vss.read("v").frames, clip)
+        vss.close()
+        # the write-back tier over the loopback object server, with its
+        # journal, and the metrics server, all the port's own
+        cfg = VSSConfig(device="cpu", backend="tiered:remote")
+        vss = VSS({str(tmp_path / "r")!r}, config=cfg)
+        vss.write("v", clip, codec="tvc-ll")
+        url = vss.start_metrics_server().url
+        import urllib.request
+        with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+            assert b"vss_cache_writeback" in r.read()
+        vss.close()
+        vss = VSS({str(tmp_path / "r")!r}, config=cfg)
         assert np.array_equal(vss.read("v").frames, clip)
         vss.close()
         import torch

@@ -6,8 +6,12 @@ exactly, except the non-integer bilinear resize (max |Δ| ≤ 1, see
 package open and read back bit-exactly in the other, and two stores
 driven through the same operations hold the same catalog rows and the
 same object bytes."""
+import json
 import os
+import socket
 import sqlite3
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -21,7 +25,6 @@ from repro.core.spec import ReadSpec as JReadSpec
 from repro.core.store import VSS as JVSS
 from repro.core.store import resample as jresample
 from repro_torch import codec as tcodec
-from repro_torch import storage as tstorage
 from repro_torch.core import store as tstore_mod
 from repro_torch.core.config import VSSConfig as TConfig
 from repro_torch.core.spec import ReadSpec as TReadSpec
@@ -254,29 +257,109 @@ def test_device_has_no_environment_override(monkeypatch):
     assert TConfig().with_env().solver == "greedy"
 
 
+def _no_name_lookups(monkeypatch):
+    """Resolve loopback only: a spec naming another host must fail here,
+    in both packages alike, without asking a name server."""
+    real = socket.getaddrinfo
+
+    def loopback_only(host, *args, **kw):
+        if host not in ("127.0.0.1", "localhost", "::1"):
+            raise socket.gaierror(socket.EAI_NONAME,
+                                  "Name or service not known")
+        return real(host, *args, **kw)
+
+    monkeypatch.setattr(socket, "getaddrinfo", loopback_only)
+
+
+def _gop_objects(vss):
+    return {g.path: vss.backend.get(g.path)
+            for g in vss.catalog.all_gops()}
+
+
 @pytest.mark.parametrize("spec", ["sharded:2", "tiered", "tiered:remote",
                                   "replicated:3:2:2", "remote",
                                   "remotes:https://h:1"])
-def test_unported_backends_raise(tmp_path, spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstorage.make_backend(spec, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TVSS(str(tmp_path / "s"), config=TConfig(backend=spec, device="cpu"))
+def test_backend_specs_match_reference(tmp_path, clip, monkeypatch, spec):
+    """Every spec of the grammar builds in the port: a store on it
+    writes and reads the same frames and the same GOP objects as the
+    reference's, and a spec that cannot open fails as it does there."""
+    _no_name_lookups(monkeypatch)
+    if spec.startswith("remotes:"):
+        errors = []
+        for make, config, name in ((JVSS, JConfig, "j"),
+                                   (TVSS, TConfig, "t")):
+            kw = {"device": "cpu"} if make is TVSS else {}
+            with pytest.raises(Exception) as ei:
+                make(str(tmp_path / name),
+                     config=config(backend=spec, **kw))
+            errors.append((type(ei.value).__name__, str(ei.value)))
+        assert errors[1] == errors[0]
+        assert errors[0][0] == "RemoteError"
+        return
+    stores = [JVSS(str(tmp_path / "j"), config=JConfig(backend=spec)),
+              TVSS(str(tmp_path / "t"),
+                   config=TConfig(backend=spec, device="cpu"))]
+    try:
+        for vss in stores:
+            vss.write("v", clip, fps=30.0, codec="hevc")
+        assert (stores[1].backend.layout_fingerprint().split(":")[0]
+                == stores[0].backend.layout_fingerprint().split(":")[0])
+        for kw in ({}, {"t": (0.4, 1.3)}, {"codec": "h264"}):
+            _same(*(vss.read("v", cache=False, **kw) for vss in stores))
+        assert _gop_objects(stores[1]) == _gop_objects(stores[0])
+    finally:
+        for vss in stores:
+            vss.close()
 
 
-def test_unported_store_surfaces_raise(pair):
-    """The metrics server is still to port and raises.  Joint compression
+def _get(url):
+    try:
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read()
+
+
+def test_store_surfaces_match_reference(tmp_path, clip):
+    """The metrics server serves ``/metrics`` and ``/healthz`` in the
+    port as in the reference: the same statuses, health report and
+    metric families (each store on a registry of its own, so no other
+    store in the process shows), and no object plane.  Joint compression
     is ported (tests/test_torch_joint.py): over one video it finds no
     pair across videos and returns nothing, and a GOP whose joint record
     is missing fails on the record, not on a missing port."""
-    _j, t = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.start_metrics_server()
-    assert t.apply_joint_compression() == []
-    g = t.catalog.gops_for(t.catalog.get_original_id("v"))[0]
-    with t.catalog._lock:
-        t.catalog._conn.execute(
-            "UPDATE gop SET joint_ref = 1 WHERE id = ?", (g.gop_id,))
-        t.catalog._conn.commit()
-    with pytest.raises(KeyError, match="joint 1 not found"):
-        t.read("v", t=(0.0, 0.5), cache=False)
+    from repro.obs import MetricsRegistry as JRegistry
+    from repro_torch.obs import MetricsRegistry as TRegistry
+
+    j = JVSS(str(tmp_path / "j"), config=JConfig(
+        backend="local", registry=JRegistry()))
+    t = TVSS(str(tmp_path / "t"), config=TConfig(
+        backend="local", device="cpu", registry=TRegistry()))
+    try:
+        answers = []
+        for vss in (j, t):
+            vss.write("v", clip, fps=30.0, codec="hevc")
+            vss.read("v", t=(0.0, 0.5), cache=False)
+            srv = vss.start_metrics_server()
+            assert vss.start_metrics_server() is srv  # idempotent
+            status, body = _get(srv.url + "/metrics")
+            families = sorted(line.split()[2] for line in body.decode()
+                              .splitlines() if line.startswith("# TYPE "))
+            hstatus, hbody = _get(srv.url + "/healthz")
+            health = json.loads(hbody)
+            answers.append((status, families, hstatus, sorted(health),
+                            health["status"], _get(srv.url + "/o/k")[0]))
+        assert answers[1] == answers[0]
+        assert answers[0][0] == answers[0][2] == 200
+        assert answers[0][5] == 503
+        assert t.apply_joint_compression() == []
+        g = t.catalog.gops_for(t.catalog.get_original_id("v"))[0]
+        with t.catalog._lock:
+            t.catalog._conn.execute(
+                "UPDATE gop SET joint_ref = 1 WHERE id = ?", (g.gop_id,))
+            t.catalog._conn.commit()
+        with pytest.raises(KeyError, match="joint 1 not found"):
+            t.read("v", t=(0.0, 0.5), cache=False)
+    finally:
+        j.close()
+        t.close()
