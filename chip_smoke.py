@@ -54,7 +54,28 @@ and PyTorch built for CUDA.  In order it:
    path, and every write and read must launch what the local store's
    did; ``ops.psnr`` of each store's whole read runs ``mse``.  It
    prints every step's time and launches;
-6. drives joint compression (§5.1) in a fresh store, on ``"cuda"`` and
+6. drives the video service (the video service phase): a ``local``
+   store on the card holding both clips of step 5 as ``hevc``, and a
+   ``VSSService`` on port 0 with the default intake window and batch
+   and an admission byte cap set to hold the phase's parked results
+   (printed).  Eight clients under two tenants send, at once, for each
+   clip the whole clip as ``hevc``, ``t=(0.5, 1.7)`` as rgb, half
+   resolution as rgb over ``t=(0, 0.5)`` and the whole clip as
+   ``h264``, past the cache, and one request whose deadline is spent.
+   That one must answer 503 with ``Retry-After`` and the shed reason,
+   every other 200; fewer batches must run than requests were admitted;
+   every segment, fetched through its signed URL, must equal what an
+   in-process ``read_batch`` of the same spec gives and what the same
+   burst gives on a CPU store copied from this one; the frames decoded
+   on the card must equal the CPU run's and the main path's reads of
+   the same spec; a tampered signature answers 403, a ranged signed GOP
+   fetch 206 with the right bytes, ``/v1/manifest/road`` lists the
+   catalog's GOPs, ``/metrics`` parses as Prometheus text with the 12
+   ``vss_serve_*`` families; the phase must launch ``delta_decode`` and
+   ``delta_encode`` and call no plain version.  It repeats the burst
+   with ``window_s=0, max_batch=1`` (coalescing off) and prints both
+   bursts' wall time, requests/s and client times to manifest;
+7. drives joint compression (§5.1) in a fresh store, on ``"cuda"`` and
    then on ``"cpu"``: writes two 1080p 30-frame camera pairs as hevc,
    ``apply_joint_compression`` over pair A (side by side: joined) and
    pair B (with perspective: aborted, as the reference does), then reads
@@ -64,7 +85,7 @@ and PyTorch built for CUDA.  In order it:
    plain versions; pair A's sides must read back at 24 dB or more.  It
    prints each step's time and the compress steps' split (decode, host
    features, warp, histogram, segment encode);
-7. holds the serving path's kernels against their plain versions on the
+8. holds the serving path's kernels against their plain versions on the
    card: the paged decode attention at Qwen3-32B's decode shape (8
    sequences of 1 to 4096 tokens, 64 query and 8 KV heads of 128, pages
    of 16) in bf16 and f32, at Phi-3-mini's (32 and 32 heads of 96) and
@@ -89,7 +110,7 @@ and PyTorch built for CUDA.  In order it:
    ``library_ms``).  ``ops.psnr`` of the main path's whole-clip read
    against its source must agree with its plain version and with
    ``exact_mse`` frame by frame;
-8. drives the serving engine (``ServingEngine``, a paged KV pool of 1024
+9. drives the serving engine (``ServingEngine``, a paged KV pool of 1024
    pages of 16 tokens) over a Qwen3-32B-width model cut to 16 of its 64
    layers, with random weights drawn on the card from seed 0: seven
    prompts of 128 to 1024 tokens (two share their first 512), 32 new
@@ -100,7 +121,7 @@ and PyTorch built for CUDA.  In order it:
    must be what the pool's page arithmetic predicts; the paged attention
    must launch once per layer and decode round; it prints prefill time
    per request, time to first token, and decode-round times;
-9. prints one JSON line of per-kernel numbers, the card line, and the
+10. prints one JSON line of per-kernel numbers, the card line, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises, and the script exits non-zero without the
@@ -111,12 +132,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import sqlite3
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -156,6 +180,14 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.obs import MetricsRegistry  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.serving.config import (  # noqa: E402
+    AdmissionConfig,
+    ServiceConfig,
+)
+from repro_torch.serving.service import (  # noqa: E402
+    VSSService,
+    spec_from_json,
+)
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the f32 rate outside the
 # tensor cores (the kernels do scalar f32 work).
@@ -642,12 +674,13 @@ def check_kernels(device: str, shapes, reps: int, seed: int = 0):
 class _Steps:
     """Runs named steps, each with the launch counts set to 0 just before
     it and read just after (the plain versions' calls on the CPU), and
-    keeps each step's wall time."""
+    keeps each step's wall time and its plain-version calls."""
 
     def __init__(self, device: str):
         self.device = device
         self.secs = {}
         self.launches = {}
+        self.plain = {}
 
     def __call__(self, name: str, fn):
         ops.reset_launch_counts()
@@ -657,9 +690,10 @@ class _Steps:
         if self.device == "cuda":
             torch.cuda.synchronize()
         self.secs[name] = time.perf_counter() - t0
+        self.plain[name] = ops.plain_counts()
         # on the CPU, the plain versions' calls stand in for launches
         self.launches[name] = (ops.launch_counts() if self.device == "cuda"
-                               else ops.plain_counts())
+                               else self.plain[name])
         return result
 
 
@@ -969,6 +1003,336 @@ def drive_backends(root: str, videos, device: str, main_frames=None):
             device, hot_bytes=hot_bytes if spec.startswith("tiered") else None)
         check_backend(spec, runs[spec], local)
     return runs
+
+
+# -- the video service phase: the HTTP tier over a store on the card -----
+
+SERVICE_CLIENTS = 8
+SERVICE_TENANTS = ("tenant-a", "tenant-b")
+# parked results count against the admission byte cap until their URLs
+# expire (300 s): a burst parks about 0.5 GB of 1080p segments, past the
+# 256 MiB default, so the phase sets the cap to hold several bursts
+SERVICE_INFLIGHT_BYTES = 4 << 30
+SERVICE_FAMILIES = (
+    "vss_serve_requests_total", "vss_serve_admitted_total",
+    "vss_serve_shed_total", "vss_serve_batches_total",
+    "vss_serve_coalesce_width", "vss_serve_queue_wait_seconds",
+    "vss_serve_ttfb_seconds", "vss_serve_e2e_seconds",
+    "vss_serve_queue_depth", "vss_serve_inflight_bytes",
+    "vss_serve_tenant_tokens", "vss_serve_manifest_cache_misses_total",
+)
+PROM_SAMPLE = re.compile(
+    r"^[a-zA-Z_:][a-zA-Z0-9_:]*"
+    r"(\{([a-zA-Z_][a-zA-Z0-9_]*=\"[^\"]*\")(,[a-zA-Z_][a-zA-Z0-9_]*"
+    r"=\"[^\"]*\")*\})?"
+    r" (\+Inf|-Inf|NaN|[-+0-9.eE]+)$")
+PAST_DEADLINE = "road t=(0.5, 1.7) past its deadline"
+
+
+def service_bodies(sizes):
+    """(name, JSON body) of the burst: for each video the whole clip as
+    hevc (the stored GOPs passed through), ``t=(0.5, 1.7)`` as rgb, half
+    resolution as rgb over ``t=(0, 0.5)`` (the box mean runs on the host
+    at about 0.1 s a 1080p frame), and the whole clip re-encoded to
+    h264; first, one request for ``road`` whose deadline is spent
+    before dispatch.  ``sizes`` is {video: (width, height)}.
+    Every read skips the cache, so each burst does the same work
+    whatever the coalescer grouped."""
+    out = [(PAST_DEADLINE, {"name": "road", "t": [0.5, 1.7],
+                            "codec": "rgb", "deadline_ms": 0})]
+    for name, (w, h) in sizes.items():
+        for what, body in (
+                ("hevc", {"codec": "hevc"}),
+                ("t=(0.5, 1.7)", {"t": [0.5, 1.7], "codec": "rgb"}),
+                (f"resolution={(w // 2, h // 2)} t=(0, 0.5)",
+                 {"resolution": [w // 2, h // 2], "t": [0.0, 0.5],
+                  "codec": "rgb"}),
+                ("codec=h264", {"codec": "h264"})):
+            out.append((f"{name} {what}",
+                        dict(body, name=name, cache=False)))
+    return out
+
+
+def _http(method, url, body=None, headers=None):
+    req = urllib.request.Request(url, data=body, headers=headers or {},
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.read(), dict(resp.headers)
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read(), dict(exc.headers)
+
+
+def service_burst(base, bodies):
+    """Every body from `SERVICE_CLIENTS` threads released together,
+    client ``i`` sending bodies ``i, i + 8, ...`` under tenant ``i % 2``.
+    Returns {name: (status, manifest, headers, client seconds to the
+    manifest)} and the burst's wall seconds."""
+    answers = {}
+    gate = threading.Barrier(SERVICE_CLIENTS)
+    errors = []
+
+    def client(i):
+        try:
+            gate.wait()
+            for name, body in bodies[i::SERVICE_CLIENTS]:
+                t0 = time.perf_counter()
+                status, data, headers = _http(
+                    "POST", base + "/v1/read", json.dumps(body).encode(),
+                    {"X-VSS-Tenant": SERVICE_TENANTS[i % 2],
+                     "Content-Type": "application/json"})
+                answers[name] = (status, json.loads(data or b"{}"),
+                                 headers, time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVICE_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("a service client hung")
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return answers, wall
+
+
+def _check_answers(answers, tag):
+    """The past-deadline request was shed (503, Retry-After, the shed
+    reason), every other answered 200."""
+    status, body, headers, _s = answers[PAST_DEADLINE]
+    if (status != 503 or headers.get("X-VSS-Shed-Reason") != "deadline"
+            or int(headers.get("Retry-After", "0")) < 1
+            or body.get("reason") != "deadline"):
+        raise AssertionError(f"{tag}: past-deadline request answered"
+                             f" {status} {headers} {body}")
+    bad = {n: a[0] for n, a in answers.items()
+           if n != PAST_DEADLINE and a[0] != 200}
+    if bad:
+        raise AssertionError(f"{tag}: admitted requests answered {bad}")
+
+
+def _fetch_segments(base, answers):
+    """{name: [segment bytes]} through each manifest's signed URLs."""
+    out = {}
+    for name, (status, manifest, _h, _s) in answers.items():
+        if status != 200:
+            continue
+        out[name] = []
+        for seg in manifest["segments"]:
+            st, data, _hd = _http("GET", base + seg["url"])
+            if st != 200 or len(data) != seg["nbytes"]:
+                raise AssertionError(f"segment of {name}: {st}, {len(data)}"
+                                     f" bytes of {seg['nbytes']}")
+            out[name].append(data)
+    return out
+
+
+def _segments_of(result, device):
+    """What `VSSService.park` serves for ``result``: its encoded GOPs
+    serialized, or its frames split into GOPs and encoded on ``device``."""
+    if result.encoded is not None:
+        return [codec.serialize_gop(e) for e in result.encoded]
+    return [codec.serialize_gop(codec.encode_gop(chunk, result.codec,
+                                                 device=device))
+            for _s, chunk in codec.split_into_gops(result.frames,
+                                                   result.codec)]
+
+
+def _check_surfaces(base, vss, registry, answers, tag):
+    """Signatures, ranges, the stored manifest and ``/metrics``."""
+    url = next(a[1]["segments"][0]["url"] for n, a in answers.items()
+               if a[0] == 200)
+    if _http("GET", base + url.replace("sig=", "sig=0"))[0] != 403:
+        raise AssertionError(f"{tag}: a tampered signature was not 403")
+    status, data, _h = _http("GET", base + "/v1/manifest/road")
+    doc = json.loads(data)
+    listed = {g["path"] for p in doc["physicals"] for g in p["gops"]}
+    stored = {g.path for p in vss.catalog.physicals_for("road")
+              for g in vss.catalog.gops_for(p.physical_id)}
+    if status != 200 or listed != stored:
+        raise AssertionError(f"{tag}: manifest of road lists {listed},"
+                             f" the catalog {stored}")
+    gop = doc["physicals"][0]["gops"][0]
+    whole = vss.backend.get(gop["path"])
+    status, part, headers = _http("GET", base + gop["url"],
+                                  headers={"Range": "bytes=100-4195"})
+    if (status != 206 or part != whole[100:4196] or headers.get(
+            "Content-Range") != f"bytes 100-4195/{len(whole)}"):
+        raise AssertionError(f"{tag}: ranged GOP fetch answered {status}"
+                             f" {headers.get('Content-Range')}")
+    status, data, headers = _http("GET", base + "/metrics")
+    text = data.decode()
+    bad = [ln for ln in text.splitlines()
+           if ln and not ln.startswith("#") and not PROM_SAMPLE.match(ln)]
+    families = {ln.split()[2] for ln in text.splitlines()
+                if ln.startswith("# TYPE ")}
+    missing = [f for f in SERVICE_FAMILIES if f not in families]
+    if status != 200 or bad or missing:
+        raise AssertionError(f"{tag}: /metrics unparsed lines {bad[:3]},"
+                             f" missing families {missing}")
+    if not registry.value("vss_serve_shed_total",
+                          {"reason": "deadline"}) >= 1:
+        raise AssertionError(f"{tag}: no deadline shed counted")
+
+
+def drive_service(root: str, device: str, videos=None, controls=True):
+    """The video service phase on ``device``: a ``local`` store (``videos``
+    written into it as hevc, if given), a `VSSService` on port 0 with the
+    default window and batch, the burst of `service_bodies`, the
+    segments fetched through their signed URLs and decoded on
+    ``device``, and the surfaces checked.  With ``controls`` it also
+    reads every spec in-process (the segments must equal what those
+    reads give) and repeats the burst on a second service with
+    ``window_s=0, max_batch=1`` (coalescing off; the same bytes).
+    Returns segments, frames, wall times, launches and the numbers it
+    prints."""
+    step = _Steps(device)
+    registry = MetricsRegistry()
+    vss = VSS(root, config=VSSConfig(device=device, backend="local",
+                                     registry=registry))
+    for name, clip in (videos or {}).items():
+        step(f"write {name}",
+             lambda: vss.write(name, clip, fps=30.0, codec="hevc"))
+    originals = {n: vss.catalog.get_physical(vss.catalog.get_original_id(n))
+                 for n in sorted(vss.catalog.list_logical())}
+    bodies = service_bodies({n: (p.width, p.height)
+                             for n, p in originals.items()})
+    admission = AdmissionConfig(inflight_bytes_limit=SERVICE_INFLIGHT_BYTES)
+    service = VSSService(vss, config=ServiceConfig(admission=admission))
+    run = {"secs": step.secs, "launches": step.launches,
+           "plain": step.plain, "cap": SERVICE_INFLIGHT_BYTES}
+    try:
+        answers, run["burst_s"] = step(
+            "burst", lambda: service_burst(service.url, bodies))
+        _check_answers(answers, f"{device} burst")
+        run["to_manifest_s"] = [a[3] for n, a in answers.items()
+                                if n != PAST_DEADLINE]
+        run["segments"] = step(
+            "fetch segments", lambda: _fetch_segments(service.url, answers))
+        run["held_bytes"] = service.admission.held_bytes
+        run["admitted"] = registry.value("vss_serve_admitted_total")
+        run["batches"] = registry.value("vss_serve_batches_total")
+        if not run["batches"] < run["admitted"]:
+            raise AssertionError(
+                f"{device} burst: {run['batches']} batches for"
+                f" {run['admitted']} admitted requests: no coalescing")
+        run["frames"] = step("client decodes", lambda: {
+            name: np.concatenate([codec.decode_gop(
+                codec.deserialize_gop(b), device=device) for b in segs])
+            for name, segs in run["segments"].items()})
+        _check_surfaces(service.url, vss, registry, answers, device)
+        if controls:
+            live = [(n, b) for n, b in bodies if n != PAST_DEADLINE]
+            results = step("in-process reads", lambda: vss.read_batch(
+                [spec_from_json(b) for _n, b in live]))
+            for (name, _b), result in zip(live, results):
+                if _segments_of(result, device) != run["segments"][name]:
+                    raise AssertionError(f"{device} {name}: segments !="
+                                         " the in-process read's")
+            sequential = VSSService(vss, config=ServiceConfig(
+                admission=admission, window_s=0.0, max_batch=1),
+                registry=MetricsRegistry())
+            try:
+                again, run["sequential_s"] = step(
+                    "burst without coalescing",
+                    lambda: service_burst(sequential.url, bodies))
+                _check_answers(again, f"{device} burst without coalescing")
+                run["sequential_to_manifest_s"] = [
+                    a[3] for n, a in again.items() if n != PAST_DEADLINE]
+                if _fetch_segments(sequential.url, again) != \
+                        run["segments"]:
+                    raise AssertionError(f"{device}: segments without"
+                                         " coalescing differ")
+                run["sequential_batches"] = sequential.registry.value(
+                    "vss_serve_batches_total")
+            finally:
+                sequential.close()
+    finally:
+        service.close()
+        vss.close()
+    return run
+
+
+def check_service(gpu, cpu, main_frames) -> None:
+    """The card's segments and frames equal the CPU run's, the road
+    reads equal the main path's reads of the same spec (the windowed
+    half-resolution read the first 15 frames of the main path's), the
+    codec kernels launched and no plain version ran on the card."""
+    if gpu["segments"] != cpu["segments"]:
+        raise AssertionError("video service: cuda segments != cpu segments")
+    for name, frames in gpu["frames"].items():
+        if not np.array_equal(frames, cpu["frames"][name]):
+            raise AssertionError(f"video service {name}: cuda frames !="
+                                 " cpu frames")
+    for name, want in main_frames.items():
+        if not np.array_equal(gpu["frames"][name], want):
+            raise AssertionError(f"video service {name}: frames != the"
+                                 " main path's read")
+    total = {}
+    for counts in gpu["launches"].values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    if not (total.get("delta_decode") and total.get("delta_encode")):
+        raise AssertionError(f"video service launched {total}")
+    plain = {k: v for k, v in gpu["plain"].items() if v}
+    if plain:
+        raise AssertionError(f"video service ran plain versions on the"
+                             f" card: {plain}")
+    print(f"  video service: {len(gpu['segments'])} answers, segments"
+          " byte-identical to the in-process reads and to the cpu run's,"
+          f" frames equal to the cpu run's and to {len(main_frames)} main"
+          f" path reads; launches {total}, no plain-version call")
+
+
+def service_phase(clip, videos, main_reads, card):
+    """The video service phase on the card, then on a CPU store copied
+    from the card's, checked against each other and against the main
+    path's reads (``main_reads``); prints its numbers and returns the
+    card's run."""
+    ch, cw = clip.shape[1:3]
+    print("video service phase: VSSService over a local store of both"
+          f" clips, {len(service_bodies(dict.fromkeys(videos, (cw, ch))))}"
+          f" requests from {SERVICE_CLIENTS} clients at once, on the card,"
+          " then on a cpu store copied from it", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d_s:
+        sgpu = drive_service(os.path.join(d_s, "cuda"), "cuda", videos)
+        shutil.copytree(os.path.join(d_s, "cuda"), os.path.join(d_s, "cpu"))
+        scpu = drive_service(os.path.join(d_s, "cpu"), "cpu", controls=False)
+    service_s = time.perf_counter() - t0
+    half = f"resolution={(cw // 2, ch // 2)}"
+    check_service(sgpu, scpu, {
+        "road hevc": main_reads["whole clip as rgb"][0],
+        "road t=(0.5, 1.7)": main_reads["t=(0.5, 1.7)"][0],
+        # t=(0, 0.5) of a 30 fps clip: its first 15 frames
+        f"road {half} t=(0, 0.5)": main_reads[half][0][:15],
+        "road codec=h264": main_reads["codec=h264"][0]})
+    print(f"  admission byte cap {sgpu['cap']} bytes; parked after the"
+          f" burst {sgpu['held_bytes']} bytes")
+    for run, label in ((sgpu, "cuda"), (scpu, "cpu")):
+        for name, secs in run["secs"].items():
+            print(f"  {label} {name}: {secs:.3f} s, launches"
+                  f" {run['launches'][name]} [{card}]")
+    for label, wall, waits, batches in (
+            ("coalesced (window 4 ms, max batch 64)", sgpu["burst_s"],
+             sgpu["to_manifest_s"], sgpu["batches"]),
+            ("without coalescing (window 0, max batch 1)",
+             sgpu["sequential_s"], sgpu["sequential_to_manifest_s"],
+             sgpu["sequential_batches"])):
+        n = len(waits) + 1
+        print(f"  burst {label}: {n} requests in {wall:.3f} s"
+              f" ({n / wall:.2f} requests/s), {batches:g} batches for"
+              f" {len(waits)} reads and 1 shed; client time to manifest"
+              f" median {np.median(waits):.3f} s, largest"
+              f" {max(waits):.3f} s [{card}]")
+    print(f"  cpu burst: {scpu['burst_s']:.3f} s, {scpu['batches']:g}"
+          f" batches; video service phase {service_s:.1f} s wall [{card}]")
+    return sgpu
 
 
 # -- the joint path (§5.1): two camera pairs at 1080p -------------------
@@ -1868,7 +2232,10 @@ def main() -> int:
         backend_launches.update({f"backends {spec} {k}": v
                                  for k, v in run["launches"].items()})
     print(f"  backends phase: {backends_s:.1f} s wall [{card}]")
-    del videos, bruns
+    del bruns
+
+    sgpu = service_phase(clip, videos, gpu["reads"], card)
+    del videos
 
     print(f"joint path: two 1080p camera pairs of {JOINT_FRAMES} frames",
           flush=True)
@@ -1932,6 +2299,8 @@ def main() -> int:
     paths.update({f"joint {k}": v for k, v in jgpu["launches"].items()})
     paths["psnr of the whole read"] = psnr_launches
     paths.update(backend_launches)
+    paths.update({f"video service {k}": v
+                  for k, v in sgpu["launches"].items()})
     paths["serving run"] = serving_launches
     for name, (source, replaces) in KERNELS.items():
         r = knum[name]

@@ -1,7 +1,8 @@
 """The port stands alone: ``src/repro_torch`` and the chip scripts import
 neither ``jax`` nor the JAX package ``repro`` (``repro_torch`` is not
 ``repro``), the package works with both blocked (stores written and
-read, one on ``tiered:remote``; a smoke LM served), and without a card the default device raises
+read, one on ``tiered:remote``; a smoke LM served; the video service
+answering one read), and without a card the default device raises
 instead of running on the CPU."""
 import ast
 import os
@@ -95,6 +96,25 @@ def test_package_works_with_jax_and_reference_blocked(tmp_path):
         rid = eng.submit(list(range(3, 23)), max_new=3)
         out = eng.run()[rid].out
         assert len(out) == 3 and eng.metrics["decode_steps"] == 3
+        # the video service over a CPU store: one read, one segment
+        import json
+        from repro_torch.serving.config import boot_from_json
+        vss, svc = boot_from_json({{
+            "root": {str(tmp_path / "svc")!r},
+            "store": {{"device": "cpu", "backend": "local"}}}})
+        vss.write("v", clip, codec="hevc")
+        req = urllib.request.Request(
+            svc.url + "/v1/read", method="POST",
+            data=json.dumps({{"name": "v", "codec": "hevc"}}).encode())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            manifest = json.loads(r.read())
+        with urllib.request.urlopen(
+                svc.url + manifest["segments"][0]["url"], timeout=30) as r:
+            seg = codec.deserialize_gop(r.read())
+        assert np.array_equal(codec.decode_gop(seg, device="cpu"),
+                              vss.read("v", cache=False).frames)
+        svc.close()
+        vss.close()
         assert not any(k == "jax" or k.startswith("jax.") or k == "repro"
                        or k.startswith("repro.")
                        for k, v in sys.modules.items() if v is not None)

@@ -621,3 +621,119 @@ def test_metrics_families_match_reference(tmp_path, clip):
     finally:
         j.close()
         t.close()
+
+
+# ---------------------------------------------------------------------------
+# the checks of scripts/metrics_smoke.py on the port
+# ---------------------------------------------------------------------------
+
+def _reference_smoke_families():
+    """`REQUIRED_FAMILIES` of the reference's metrics smoke script."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "scripts" \
+        / "metrics_smoke.py"
+    spec = importlib.util.spec_from_file_location("_metrics_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.REQUIRED_FAMILIES
+
+
+def test_metrics_smoke_workload_on_the_port(tmp_path):
+    """The mixed workload of ``scripts/metrics_smoke.py`` on a port store
+    on ``tiered:remote``: pipelined ingest of two streams, an edge trim,
+    a tiled ROI read, a coalescing batch, one injected fault absorbed by
+    a retry, one signed and one refused request, an adaptive tick and a
+    scrub.  ``/metrics`` must expose every family the script requires,
+    in Prometheus text, and the reads must leave span trees."""
+    from repro_torch.core.config import AdaptiveConfig
+    from repro_torch.core.spec import WriteSpec
+    from repro_torch.storage import (
+        ObjectServer,
+        RemoteAuthError,
+        RemoteBackend,
+        unwrap,
+    )
+
+    reg = MetricsRegistry(enabled=True)
+    vss = VSS(str(tmp_path / "vss"), config=VSSConfig(
+        backend="tiered:remote", registry=reg,
+        adaptive=AdaptiveConfig(enabled=True)))
+    try:
+        rng = np.random.RandomState(7)
+        for name in ("cam0", "cam1"):
+            w = vss.writer(name, fps=30.0, gop_frames=10)
+            for _ in range(3):
+                w.append(rng.randint(0, 255, (20, 48, 64, 3), np.uint8))
+            w.close()
+        vss.read("cam0", t=(0.0, 1.0), cache=False)
+        vss.read("cam0", t=(0.0, 0.1), cache=False)
+        wt = vss.writer_spec(WriteSpec(name="cam2", fps=30.0, gop_frames=10,
+                                       tiles=(2, 2)))
+        wt.append(rng.randint(0, 255, (20, 48, 64, 3), np.uint8))
+        wt.close()
+        vss.read("cam2", t=(0.0, 0.5), roi=(0, 0, 24, 16), cache=False)
+        assert reg.value("vss_read_ranged_fetches_total") >= 1
+        assert reg.value("vss_tile_fetches_total") >= 1
+        vss.read_batch([
+            ReadSpec(name="cam0", t=(0.0, 1.5), cache=False),
+            ReadSpec(name="cam1", t=(0.5, 2.0), cache=False),
+            ReadSpec(name="cam0", t=(0.0, 1.5), cache=False),
+        ])
+        remote = unwrap(vss.backend, RemoteBackend)
+        server = remote._server
+        flaky = FaultInjectingBackend(server.store, registry=reg)
+        server._httpd.store = flaky
+        remote.put("smoke-probe", b"metrics smoke payload")
+        flaky.fail_next(1)
+        assert remote.get("smoke-probe") == b"metrics smoke payload"
+        assert remote.retries >= 1
+        assert reg.value("vss_journal_appends_total") >= 1
+        assert reg.value("vss_journal_fsyncs_total") >= 1
+        secret = b"metrics-smoke-secret"
+        auth_server = ObjectServer(MemoryBackend(), secret=secret,
+                                   registry=reg)
+        signed = RemoteBackend(auth_server.url, secret=secret,
+                               backoff_base=0.01)
+        anon = RemoteBackend(auth_server.url, backoff_base=0.01)
+        try:
+            signed.put("k", b"authenticated")
+            assert signed.get("k") == b"authenticated"
+            with pytest.raises(RemoteAuthError):
+                anon.get("k")
+            assert anon.retries == 0
+        finally:
+            signed.close()
+            anon.close()
+            auth_server.close()
+        for _ in range(3):
+            vss.read("cam0", t=(0.0, 1.0), resolution=(32, 24), cache=False)
+        report = vss.adapt()
+        assert reg.value("vss_profiler_records_total") >= 5
+        assert reg.value("vss_adapt_runs_total") >= 1
+        assert "materialized" in report
+        vss.scrub()
+        srv = vss.start_metrics_server()
+        with urllib.request.urlopen(srv.url + "/metrics", timeout=10) as r:
+            assert r.status == 200
+            assert "text/plain" in r.headers.get("Content-Type", "")
+            body = r.read().decode()
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=10) as r:
+            health = json.loads(r.read())
+        assert health["status"] == "ok"
+        assert health["backend"]["ok"] and health["ingest"]["started"]
+        samples = [ln for ln in body.splitlines()
+                   if ln and not ln.startswith("#")]
+        assert all(SAMPLE_RE.match(ln) for ln in samples)
+        assert len(samples) > 50
+        families = {ln.split()[2] for ln in body.splitlines()
+                    if ln.startswith("# TYPE")}
+        missing = [f for f in _reference_smoke_families()
+                   if f not in families]
+        assert not missing, missing
+        spans = {c["name"] for t in vss.recent_traces()
+                 for c in t.get("children", [])}
+        assert {"plan", "decode"} <= spans
+    finally:
+        vss.close()
