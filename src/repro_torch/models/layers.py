@@ -1,20 +1,20 @@
-"""Core transformer layers of the dense ("attn") stack, in PyTorch.
+"""Core transformer layers, in PyTorch.
 
-Port of the dense part of ``repro.models.layers``: norms, rotary
-embeddings, the q-chunked f32 prefill attention, the attention
-projections and the (gated) MLP.  The modules ``Norm``, ``Attention``
-and ``MLP`` hold the parameters (their constructors take the place of
-``init_norm``, ``init_attn`` and ``init_mlp``), and the functions take
-them where the reference takes parameter dicts.  Weights
-are held in bf16 and norm scales in f32, which gives the numbers of the
-reference's f32 masters cast to bf16 at use (``.astype(dt)``).
+Port of ``repro.models.layers``: norms, rotary embeddings, the q-chunked
+f32 prefill attention (causal, bidirectional or windowed), the attention
+projections, the (gated) MLP and the capacity-based MoE layer.  The
+modules ``Norm``, ``Attention``, ``MLP`` and ``MoE`` hold the parameters
+(their constructors take the place of ``init_norm``, ``init_attn``,
+``init_mlp`` and ``init_moe``), and the functions take them where the
+reference takes parameter dicts.  Weights are held in bf16 and norm
+scales in f32, which gives the numbers of the reference's f32 masters
+cast to bf16 at use (``.astype(dt)``).
 
 There is no ``ShardCtx``: the port runs on one card, where the
-reference's sharding constraints are no-ops.  The large products are
-``torch.matmul``/``einsum`` in bf16, as the reference leaves them to
-XLA; the prefill attention is plain f32 tensor code, as in the
-reference.  Not ported here: MoE, windowed and cross attention
-(``models.model`` raises for those layer types).
+reference's sharding constraints are no-ops (and its MoE token groups
+are one group).  The large products are ``torch.matmul``/``einsum``/
+``bmm`` in bf16, as the reference leaves them to XLA; the prefill
+attention is plain f32 tensor code, as in the reference.
 """
 from __future__ import annotations
 
@@ -23,7 +23,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 COMPUTE_DTYPE = torch.bfloat16
 NEG_INF = -1e30
@@ -120,7 +119,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):
 
 
 # ---------------------------------------------------------------------------
-# attention (q-chunked, causal, GQA) — the prefill and parallel pass
+# attention (q-chunked; GQA; causal / window / cross) — the parallel pass
 # ---------------------------------------------------------------------------
 
 def _attn_block(q, k, v, mask, scale):
@@ -139,12 +138,14 @@ def attention(
     v: torch.Tensor,  # (B, T, Hkv, D)
     *,
     causal: bool = True,
+    window: Optional[int] = None,
     q_offset: int = 0,  # position of q[0] within the kv timeline
     chunk: int = 512,
 ) -> torch.Tensor:
-    """Causal GQA attention in f32, in chunks of ``chunk`` query rows (the
+    """GQA attention in f32, in chunks of ``chunk`` query rows (the
     largest divisor of Sq not above it, as in the reference), so a long
-    prefill never holds an Sq x T score matrix."""
+    prefill never holds an Sq x T score matrix.  ``causal`` masks later
+    keys; ``window`` also masks keys ``window`` or more positions back."""
     b, sq, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -157,6 +158,8 @@ def attention(
                        device=q.device)
         if causal:
             m &= kv_pos[None, None, :] <= q_pos[None, :, None]
+        if window is not None:
+            m &= kv_pos[None, None, :] > q_pos[None, :, None] - window
         return m
 
     if sq % chunk:
@@ -219,15 +222,41 @@ def attn_out(p: Attention, o: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", o, p.wo.to(o.dtype))
 
 
+def self_attention_block(p: Attention, x: torch.Tensor, cfg: AttnCfg,
+                         positions, chunk: int = 512) -> torch.Tensor:
+    q, k, v = attn_qkv(p, x, cfg, positions)
+    o = attention(q, k, v, causal=cfg.causal, window=cfg.window,
+                  chunk=chunk)
+    return attn_out(p, o)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
 
+# The activations follow jax.nn's definitions op by op in the input's
+# dtype (constants rounded to it), so that a bf16 input is rounded after
+# each op as the reference is; F.silu and F.gelu round once.
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default, the tanh approximation."""
+    c = torch.tensor([0.044715, np.sqrt(2 / np.pi)], dtype=x.dtype).tolist()
+    return x * (0.5 * (1 + torch.tanh(c[1] * (x + c[0] * x ** 3))))
+
+
 def _act(name: str):
     if name == "silu":
-        return F.silu
-    if name == "gelu":  # jax.nn.gelu is the tanh approximation by default
-        return lambda x: F.gelu(x, approximate="tanh")
+        return silu
+    if name == "gelu":
+        return gelu
     raise ValueError(f"unknown activation {name!r}")
 
 
@@ -253,3 +282,107 @@ def mlp_block(p: MLP, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = a(h)
     return h @ p.wd.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MoE (capacity-based, one token group)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    num_experts: int
+    top_k: int
+    d_expert: int  # per-expert hidden width
+    num_shared: int = 0
+    capacity_factor: float = 1.25
+
+
+class MoE(torch.nn.Module):
+    """router (D,E), we_in/we_gate (E,D,F), we_out (E,F,D) in bf16 and,
+    with shared experts, a gated ``shared`` MLP of width num_shared*F."""
+
+    def __init__(self, d: int, cfg: MoECfg, *, generator, device):
+        super().__init__()
+        e, f = cfg.num_experts, cfg.d_expert
+        kw = dict(generator=generator, device=device)
+        self.router = weight((d, e), d, **kw)
+        self.we_in = weight((e, d, f), d, **kw)
+        self.we_gate = weight((e, d, f), d, **kw)
+        self.we_out = weight((e, f, d), f, **kw)
+        if cfg.num_shared:
+            self.shared = MLP(d, cfg.num_shared * f, True, **kw)
+
+
+def moe_capacity(tokens: int, cfg: MoECfg) -> int:
+    """Slots per expert: ceil(T*k/E*cf) rounded up to 8, at least 8."""
+    cap = int(np.ceil(tokens * cfg.top_k / cfg.num_experts
+                      * cfg.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def top_k_lower_first(probs: torch.Tensor, k: int):
+    """The k largest of the last axis, in descending order, equal values
+    lower index first (``jax.lax.top_k``'s rule; ``torch.topk`` promises
+    no order among ties).  Returns (values, indices)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_dispatch(ids: torch.Tensor, num_experts: int, capacity: int):
+    """ids (T, k) → each choice's row in the (E*capacity) expert buffer
+    and whether it was kept, both (k*T,) slot-major: every token's first
+    choice is placed before any token's second, so the later choices are
+    the ones dropped at capacity.  A dropped choice's row is E*capacity,
+    one past the buffer."""
+    flat = ids.T.reshape(-1)  # (k*T,), slot-major
+    onehot = torch.nn.functional.one_hot(flat, num_experts)
+    pos = (onehot.cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
+    keep = pos < capacity
+    row = torch.where(keep, flat * capacity + pos,
+                      torch.full_like(flat, num_experts * capacity))
+    return row, keep
+
+
+def moe_block(p: MoE, x: torch.Tensor, cfg: MoECfg, act: str):
+    """x: (B, S, D) → ((B, S, D), aux); capacity-dropped choices add 0.
+
+    The reference's semantics with an index dispatch in place of its
+    one-hot einsums: softmax router in f32, top-k lower index first,
+    weights renormalised, slot-major capacity drops, each kept choice's
+    token copied into its expert's slot, the experts' gated MLPs as three
+    ``bmm`` over the (E, C, D) buffer (every expert's weights read once),
+    each token's k outputs weighted by the bf16-rounded weights and
+    summed in f32 in slot order, the shared MLP on every token, and the
+    GShard aux from the first choices."""
+    b, s, d = x.shape
+    dt = x.dtype
+    t = b * s
+    e, k = cfg.num_experts, cfg.top_k
+    tokens = x.reshape(t, d)
+    logits = (tokens @ p.router.to(dt)).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)  # (T, E)
+    weights, ids = top_k_lower_first(probs, k)  # (T, k)
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+
+    cap = moe_capacity(t, cfg)
+    row, keep = moe_dispatch(ids, e, cap)
+    src = torch.arange(t, device=x.device).repeat(k)  # token of each choice
+    buf = x.new_zeros((e * cap + 1, d))
+    buf[row] = tokens[src]  # kept rows are distinct; the spare row is cut
+    buf = buf[: e * cap].view(e, cap, d)
+
+    a = _act(act)
+    h = torch.bmm(buf, p.we_in.to(dt))
+    h = a(torch.bmm(buf, p.we_gate.to(dt))) * h
+    out = torch.bmm(h, p.we_out.to(dt)).view(e * cap, d)
+    out = torch.cat([out, out.new_zeros((1, d))])  # the dropped choices' 0
+    w = weights.T.to(dt).to(torch.float32)  # (k, T), as oh_e * w_s in bf16
+    y = (w[..., None] * out[row].view(k, t, d).to(torch.float32)).sum(0)
+    y = y.to(dt)
+    if hasattr(p, "shared"):
+        y = y + mlp_block(p.shared, tokens, act)
+
+    me = probs.mean(0)
+    ce = torch.nn.functional.one_hot(ids[:, 0], e).to(torch.float32).mean(0)
+    aux = (me * ce).sum() * e
+    return y.reshape(b, s, d), aux

@@ -1,23 +1,36 @@
-"""The dense causal LM of the ten assigned architectures, in PyTorch.
+"""The causal LM of the ten assigned architectures, in PyTorch.
 
-Port of the dense ("attn" layer type: global self-attention and a
-gated MLP) part of ``repro.models.model``.  The reference stacks its
-layers into groups and runs them with ``lax.scan``; here a ``CausalLM``
-module holds one submodule per layer and Python loops over them.  Three
-entry points, as in the reference:
+Port of ``repro.models.model``: one ``CausalLM`` covering every family
+through ``ArchConfig.pattern``, whose layer types are
 
-  ``forward``      parallel pass → logits (B, S, V) bf16
+  attn    global self-attention + (gated) MLP            (dense archs)
+  local   windowed self-attention + MLP                  (recurrentgemma)
+  moe     global self-attention + MoE FFN                (deepseek, llama4)
+  rglru   RG-LRU temporal mix + MLP                      (recurrentgemma)
+  mlstm   xLSTM matrix-memory block (self-contained)     (xlstm)
+  slstm   xLSTM scalar-memory block (self-contained)     (xlstm)
+  xattn   gated cross-attention to image tokens + MLP    (llama-3.2-vision)
+  dec     causal self-attn + cross-attn to audio + MLP   (whisper decoder)
+  enc     bidirectional self-attn + MLP                  (whisper encoder)
+  dense0  layer-0 dense override in an MoE stack         (deepseek)
+
+The reference stacks its layers into groups and runs them with
+``lax.scan``; here the model holds one ``Layer`` per layer (head, the
+groups' layers in order, tail) and Python loops over them.  Three entry
+points, as in the reference:
+
+  ``forward``      parallel pass → (logits (B, S, V) bf16, MoE aux)
   ``prefill``      parallel pass that also fills the decode cache
-  ``decode_step``  one token against the cache
+  ``decode_step``  one token against the cache (dense KV, ring, states)
 
-Weights live in bf16 and norm scales in f32 (the numbers of the
-reference's f32 masters cast at use).  ``from_reference_params`` carries
-the reference's parameter dict across; ``reference_shapes`` gives the
-reference's key layout of a port model.  The decode cache is updated in
-place (the reference returns a new one): a dense cache at full width is
-large.  The other layer types (``local``, ``moe``, ``rglru``, ``mlstm``,
-``slstm``, ``xattn``, ``dec``, ``enc``, ``dense0``) raise
-``NotImplementedError`` (ROADMAP Queue 1 item 8).
+The audio and vision families take their frontend inputs (``frames``,
+``patches``) by keyword.  Weights live in bf16; norm scales, the
+cross-attention gates, ``rg_a`` and the sLSTM's recurrent weights in f32,
+the numbers of the reference's f32 masters as it uses them.
+``from_reference_params`` carries the reference's parameter dict across;
+``reference_shapes`` gives the reference's key layout of a port model.
+The decode cache is updated in place (the reference returns a new one):
+a dense cache at full width is large.
 """
 from __future__ import annotations
 
@@ -29,15 +42,14 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 
 COMPUTE_DTYPE = torch.bfloat16
-DENSE_TYPES = ("attn",)
-
-
-def _not_ported(typ: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"layer type {typ!r} is not ported to repro_torch yet (ROADMAP"
-        " Queue 1 item 8: the non-dense layer types); only 'attn' is")
+MAX_DECODER_POS = 32_768  # learned-pos archs (whisper) decode up to here
+# layer types that open with self-attention, and those of them whose
+# decode state is a dense K/V of max_len positions
+SELF_ATTN_TYPES = ("attn", "local", "moe", "enc", "dense0", "dec")
+KV_TYPES = ("attn", "moe", "dense0", "dec")
 
 
 # ---------------------------------------------------------------------------
@@ -69,12 +81,6 @@ def layer_types(plan: LayerPlan) -> List[str]:
     return [*plan.head, *(plan.pattern * plan.n_groups), *plan.tail]
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    for typ in layer_types(layer_plan(cfg)):
-        if typ not in DENSE_TYPES:
-            raise _not_ported(typ)
-
-
 def _attn_cfg(cfg: ArchConfig, *, window=None, causal=True, use_rope=None):
     return L.AttnCfg(
         d_model=cfg.d_model,
@@ -90,57 +96,131 @@ def _attn_cfg(cfg: ArchConfig, *, window=None, causal=True, use_rope=None):
     )
 
 
+def _moe_cfg(cfg: ArchConfig) -> L.MoECfg:
+    m = cfg.moe
+    return L.MoECfg(num_experts=m.num_experts, top_k=m.top_k,
+                    d_expert=m.d_expert, num_shared=m.num_shared,
+                    capacity_factor=m.capacity_factor)
+
+
+def _mlstm_cfg(cfg: ArchConfig) -> R.MLstmCfg:
+    return R.MLstmCfg(d_model=cfg.d_model, num_heads=cfg.mlstm_heads)
+
+
+def _slstm_cfg(cfg: ArchConfig) -> R.SLstmCfg:
+    return R.SLstmCfg(d_model=cfg.d_model, num_heads=cfg.mlstm_heads)
+
+
 # ---------------------------------------------------------------------------
 # modules and init
 # ---------------------------------------------------------------------------
 
-class DenseLayer(torch.nn.Module):
-    """ln1 → self-attention → ln2 → MLP, each with a residual."""
+def _normal(shape, std, *, generator, device) -> torch.nn.Parameter:
+    """N(0, std²) drawn in f32 and rounded to bf16 (shape only on meta)."""
+    if torch.device(device).type == "meta":
+        t = torch.empty(shape, dtype=COMPUTE_DTYPE, device=device)
+    else:
+        t = torch.empty(shape, dtype=torch.float32, device=device)
+        t = (t.normal_(generator=generator) * std).to(COMPUTE_DTYPE)
+    return torch.nn.Parameter(t, requires_grad=False)
+
+
+def _gate(device) -> torch.nn.Parameter:
+    """A cross-attention gate: an f32 scalar, zero at init."""
+    return torch.nn.Parameter(torch.zeros((), dtype=torch.float32,
+                                          device=device), requires_grad=False)
+
+
+class Layer(torch.nn.Module):
+    """One layer of type ``typ``; its submodules and parameters carry the
+    names of the reference's keys (``ln1``, ``attn``, ``ln2``, ``mlp``,
+    ``moe``, ``rec``, ``lstm``, ``lnx``, ``xattn``, ``xgate``,
+    ``mgate``)."""
+
+    def __init__(self, typ: str, cfg: ArchConfig, *, generator, device):
+        super().__init__()
+        self.typ = typ
+        d, nt = cfg.d_model, cfg.norm_type
+        kw = dict(generator=generator, device=device)
+        self.ln1 = L.Norm(d, nt, device=device)
+        if typ in SELF_ATTN_TYPES:
+            self.attn = L.Attention(_attn_cfg(cfg), **kw)
+        elif typ == "rglru":
+            self.rec = R.RGLRU(d, cfg.rnn_width or d, **kw)
+        elif typ == "mlstm":
+            self.lstm = R.MLstm(_mlstm_cfg(cfg), **kw)
+        elif typ == "slstm":
+            self.lstm = R.SLstm(_slstm_cfg(cfg), **kw)
+        elif typ == "xattn":
+            self.xattn = L.Attention(_attn_cfg(cfg, use_rope=False), **kw)
+            self.xgate = _gate(device)
+            self.mgate = _gate(device)
+        else:
+            raise ValueError(f"unknown layer type {typ!r}")
+        if typ == "dec":
+            self.lnx = L.Norm(d, nt, device=device)
+            self.xattn = L.Attention(_attn_cfg(cfg, use_rope=False), **kw)
+        if typ in ("mlstm", "slstm"):
+            return  # self-contained blocks: no second norm, no MLP
+        self.ln2 = L.Norm(d, nt, device=device)
+        if typ == "moe":
+            self.moe = L.MoE(d, _moe_cfg(cfg), **kw)
+        else:
+            ff = cfg.first_dense_ff if typ == "dense0" else cfg.d_ff
+            self.mlp = L.MLP(d, ff, cfg.gated_mlp, **kw)
+
+
+class Encoder(torch.nn.Module):
+    """The whisper encoder: ``enc`` layers over the projected frames, its
+    own learned ``pos_embed`` (T_frames, D) and final ``norm``."""
 
     def __init__(self, cfg: ArchConfig, *, generator, device):
         super().__init__()
-        d, nt = cfg.d_model, cfg.norm_type
-        self.ln1 = L.Norm(d, nt, device=device)
-        self.attn = L.Attention(_attn_cfg(cfg), generator=generator,
-                                device=device)
-        self.ln2 = L.Norm(d, nt, device=device)
-        self.mlp = L.MLP(d, cfg.d_ff, cfg.gated_mlp, generator=generator,
-                         device=device)
+        self.layers = torch.nn.ModuleList(
+            Layer("enc", cfg, generator=generator, device=device)
+            for _ in range(cfg.encoder_layers))
+        self.pos_embed = _normal((cfg.num_frontend_tokens, cfg.d_model),
+                                 0.02, generator=generator, device=device)
+        self.norm = L.Norm(cfg.d_model, cfg.norm_type, device=device)
 
 
 class CausalLM(torch.nn.Module):
-    """embed (V, D) bf16, one ``DenseLayer`` per layer, final norm and,
-    unless tied, lm_head (D, V) bf16."""
+    """embed (V, D) bf16; for the audio family a learned ``pos_embed``
+    (MAX_DECODER_POS, D) and an ``encoder``; for a frontend
+    ``frontend_proj`` (frontend_dim, D); one ``Layer`` per layer; final
+    norm and, unless tied, lm_head (D, V) bf16."""
 
     def __init__(self, cfg: ArchConfig, *, generator, device):
         super().__init__()
-        _check_dense(cfg)
         self.cfg = cfg
-        if torch.device(device).type == "meta":
-            embed = torch.empty((cfg.vocab_size, cfg.d_model),
-                                dtype=COMPUTE_DTYPE, device=device)
-        else:
-            embed = torch.empty((cfg.vocab_size, cfg.d_model),
-                                dtype=torch.float32, device=device)
-            embed = (embed.normal_(generator=generator) * 0.02).to(
-                COMPUTE_DTYPE)
-        self.embed = torch.nn.Parameter(embed, requires_grad=False)
+        self.plan = layer_plan(cfg)
+        kw = dict(generator=generator, device=device)
+        self.embed = _normal((cfg.vocab_size, cfg.d_model), 0.02, **kw)
+        self.pos_embed: Optional[torch.nn.Parameter] = None
+        if not cfg.use_rope and cfg.family == "audio":
+            self.pos_embed = _normal((MAX_DECODER_POS, cfg.d_model), 0.02,
+                                     **kw)
+        self.frontend_proj: Optional[torch.nn.Parameter] = None
+        if cfg.frontend is not None:
+            self.frontend_proj = L.weight(
+                (cfg.frontend_dim, cfg.d_model), cfg.frontend_dim, **kw)
+        self.encoder: Optional[Encoder] = None
+        if cfg.encoder_layers:
+            self.encoder = Encoder(cfg, **kw)
         self.layers = torch.nn.ModuleList(
-            DenseLayer(cfg, generator=generator, device=device)
-            for _ in range(cfg.num_layers))
+            Layer(typ, cfg, **kw) for typ in layer_types(self.plan))
         self.final_norm = L.Norm(cfg.d_model, cfg.norm_type, device=device)
         self.lm_head: Optional[torch.nn.Parameter] = None
         if not cfg.tie_embeddings:
             self.lm_head = L.weight((cfg.d_model, cfg.vocab_size),
-                                    cfg.d_model, generator=generator,
-                                    device=device)
+                                    cfg.d_model, **kw)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self, tokens)
+    def forward(self, tokens: torch.Tensor, *, frames=None, patches=None):
+        return forward(self, tokens, frames=frames, patches=patches)
 
 
 def _device(device) -> torch.device:
@@ -155,9 +235,10 @@ def _device(device) -> torch.device:
 def init_model(cfg: ArchConfig, *, device="cuda",
                generator: Optional[torch.Generator] = None) -> CausalLM:
     """Random weights drawn on ``device`` from ``generator`` (a fresh one
-    seeded 0 when None), in the reference's distribution: embed N(0,
-    0.02²), projections N(0, 1/fan_in), norm scales 0.  On ``"meta"`` only
-    the shapes are made."""
+    seeded 0 when None), in the reference's distribution: embed and the
+    learned positions N(0, 0.02²), projections N(0, 1/fan_in), norm
+    scales, gates, conv biases and sLSTM recurrent weights 0, ``rg_a``
+    log(expm1(U(0.3, 0.8))).  On ``"meta"`` only the shapes are made."""
     dev = _device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(dev).manual_seed(0)
@@ -165,7 +246,10 @@ def init_model(cfg: ArchConfig, *, device="cuda",
         return CausalLM(cfg, generator=generator, device=dev)
 
 
-# the reference's key of each layer: groups of the pattern, stacked
+# ---------------------------------------------------------------------------
+# the reference's parameter layout
+# ---------------------------------------------------------------------------
+
 def _layer_key(plan: LayerPlan, li: int) -> Tuple[str, Optional[int]]:
     """(key in the reference's params, index in its stacked axis)."""
     if li < len(plan.head):
@@ -179,98 +263,112 @@ def _layer_key(plan: LayerPlan, li: int) -> Tuple[str, Optional[int]]:
     return f"tail_{i}_{plan.tail[i]}", None
 
 
-def _layer_tree(layer: DenseLayer) -> Dict[str, Any]:
-    attn = {k: getattr(layer.attn, k) for k in ("wq", "wk", "wv", "wo",
-                                                 "q_norm", "k_norm")
-            if hasattr(layer.attn, k)}
-    mlp = {k: getattr(layer.mlp, k) for k in ("wi", "wd", "wg")
-           if hasattr(layer.mlp, k)}
-
-    def norm(n):
-        return {k: getattr(n, k) for k in ("scale", "bias") if hasattr(n, k)}
-
-    return {"ln1": norm(layer.ln1), "attn": attn, "ln2": norm(layer.ln2),
-            "mlp": mlp}
-
-
 def _tree_map(fn, *trees):
     if isinstance(trees[0], Mapping):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
 
 
+def _module_tree(m: torch.nn.Module) -> Dict[str, Any]:
+    """A module's parameters and submodules as the reference's nested
+    dict (the attribute names are the reference's keys)."""
+    out: Dict[str, Any] = {k: v for k, v in m._parameters.items()
+                           if v is not None}
+    out.update({k: _module_tree(c) for k, c in m._modules.items()})
+    return out
+
+
+def _stacked(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Layer trees of one group key → one tree with lists for leaves (the
+    reference's stacked leading axis)."""
+    return _tree_map(lambda *ts: list(ts), *trees)
+
+
+def _reference_tree(model: CausalLM) -> Dict[str, Any]:
+    """The reference's parameter tree of ``model``, with the port's
+    tensors for leaves (a list of them where the reference stacks)."""
+    tree: Dict[str, Any] = {"embed": model.embed}
+    if model.pos_embed is not None:
+        tree["pos_embed"] = model.pos_embed
+    if model.frontend_proj is not None:
+        tree["frontend_proj"] = model.frontend_proj
+    if model.encoder is not None:
+        enc = model.encoder
+        tree["encoder"] = {
+            "groups": {"0_enc": _stacked([_module_tree(x)
+                                          for x in enc.layers])},
+            "pos_embed": enc.pos_embed,
+            "norm": _module_tree(enc.norm),
+        }
+    groups: Dict[str, List] = {}
+    for li, layer in enumerate(model.layers):
+        key, g = _layer_key(model.plan, li)
+        if g is None:
+            tree[key] = _module_tree(layer)
+        else:
+            groups.setdefault(key, []).append(_module_tree(layer))
+    if groups:
+        tree["groups"] = {k: _stacked(v) for k, v in groups.items()}
+    tree["final_norm"] = _module_tree(model.final_norm)
+    if model.lm_head is not None:
+        tree["lm_head"] = model.lm_head
+    return tree
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    if isinstance(leaf, list):
+        return (len(leaf), *leaf[0].shape)
+    return tuple(leaf.shape)
+
+
 def reference_shapes(model: CausalLM) -> Dict[str, Any]:
     """The reference's parameter layout of ``model``: the same nested
     keys, with each leaf's shape (groups stacked on a leading axis)."""
-    cfg = model.cfg
-    plan = layer_plan(cfg)
-    out: Dict[str, Any] = {"embed": tuple(model.embed.shape)}
-    groups: Dict[str, List] = {}
-    for li, layer in enumerate(model.layers):
-        key, g = _layer_key(plan, li)
-        tree = _tree_map(lambda t: tuple(t.shape), _layer_tree(layer))
-        if g is None:
-            out[key] = tree
-        else:
-            groups.setdefault(key, []).append(tree)
-    if groups:
-        out["groups"] = {k: _tree_map(lambda *s: (len(s), *s[0]), *trees)
-                         for k, trees in groups.items()}
-    out["final_norm"] = _tree_map(lambda t: tuple(t.shape),
-                                  {"scale": model.final_norm.scale})
-    if model.lm_head is not None:
-        out["lm_head"] = tuple(model.lm_head.shape)
-    return out
+    return _tree_map(_shape, _reference_tree(model))
+
+
+def _same_keys(ref, port, path=()) -> None:
+    if isinstance(port, Mapping):
+        if not isinstance(ref, Mapping) or set(ref) != set(port):
+            got = sorted(ref) if isinstance(ref, Mapping) else type(ref)
+            raise ValueError(
+                f"reference params have keys {got} at"
+                f" {'/'.join(path) or 'the root'}, the port expects"
+                f" {sorted(port)}")
+        for k in port:
+            _same_keys(ref[k], port[k], path + (k,))
 
 
 def from_reference_params(params_np: Mapping[str, Any], cfg: ArchConfig,
                           device="cuda") -> CausalLM:
     """A port model holding the reference's weights: ``params_np`` is the
-    reference's nested dict of (numpy) arrays; ``groups`` is unstacked
-    along its leading axis.  f32 weights are rounded to bf16 as the
-    reference casts them at use; norm scales stay f32."""
-    model = init_model(cfg, device="meta")
+    reference's nested dict of (numpy) arrays, stacked groups unstacked
+    along their leading axis.  Each value is rounded to its parameter's
+    dtype: bf16 as the reference casts at use, f32 where it uses the
+    master uncast."""
     dev = _device(device)
-    plan = layer_plan(cfg)
+    model = init_model(cfg, device="meta").to_empty(device=dev)
+    tree = _reference_tree(model)
+    _same_keys(params_np, tree)
 
-    def take(path, ref_leaf, idx):
-        a = np.asarray(ref_leaf)
-        if idx is not None:
-            a = a[idx]
-        t = torch.from_numpy(np.array(a, dtype=np.float32))
-        dt = torch.float32 if path[-1] in ("scale", "bias", "q_norm",
-                                           "k_norm") else COMPUTE_DTYPE
-        return t.to(device=dev, dtype=dt)
+    def load(path, leaf, ref):
+        a = np.asarray(ref, dtype=np.float32)
+        if a.shape != _shape(leaf):
+            raise ValueError(f"{path}: reference shape {a.shape}, port"
+                             f" {_shape(leaf)}")
+        for t, x in (zip(leaf, a) if isinstance(leaf, list)
+                     else ((leaf, a),)):
+            t.copy_(torch.from_numpy(np.array(x, dtype=np.float32)))
 
-    def assign(module, tree_ref, idx, path=()):
-        for k, sub in tree_ref.items():
-            target = getattr(module, k)
-            if isinstance(sub, Mapping):
-                assign(target, sub, idx, path + (k,))
-                continue
-            t = take(path + (k,), sub, idx)
-            if tuple(t.shape) != tuple(target.shape):
-                raise ValueError(f"{'/'.join(path + (k,))}: reference shape"
-                                 f" {tuple(t.shape)}, port {tuple(target.shape)}")
-            setattr(module, k, torch.nn.Parameter(t, requires_grad=False))
+    def walk(t, r, path=""):
+        if isinstance(t, Mapping):
+            for k in t:
+                walk(t[k], r[k], f"{path}/{k}" if path else k)
+        else:
+            load(path, t, r)
 
-    want = reference_shapes(model)
-    if set(params_np) != set(want):
-        raise ValueError(f"reference params have keys {sorted(params_np)},"
-                         f" the port expects {sorted(want)}")
     with torch.no_grad():
-        model.embed = torch.nn.Parameter(
-            take(("embed",), params_np["embed"], None), requires_grad=False)
-        for li, layer in enumerate(model.layers):
-            key, g = _layer_key(plan, li)
-            tree = params_np["groups"][key] if g is not None else params_np[key]
-            assign(layer, tree, g)
-        assign(model.final_norm, params_np["final_norm"], None,
-               ("final_norm",))
-        if model.lm_head is not None:
-            model.lm_head = torch.nn.Parameter(
-                take(("lm_head",), params_np["lm_head"], None),
-                requires_grad=False)
+        walk(tree, params_np)
     return model
 
 
@@ -289,40 +387,219 @@ def unembed(model: CausalLM, x: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
-def _apply_layer(p: DenseLayer, x, cfg: ArchConfig, positions):
-    acfg = _attn_cfg(cfg)
+def _frontend(model: CausalLM, x: torch.Tensor) -> torch.Tensor:
+    x = x.to(device=model.device, dtype=COMPUTE_DTYPE)
+    return x @ model.frontend_proj.to(COMPUTE_DTYPE)
+
+
+def _encode_audio(model: CausalLM, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over stubbed frame embeddings (B, T, frontend_dim)."""
+    enc = model.encoder
+    x = _frontend(model, frames)
+    t = x.shape[1]
+    x = x + enc.pos_embed[:t].to(x.dtype)[None]
+    positions = torch.arange(t, device=x.device)
+    for layer in enc.layers:
+        x, _ = _layer(layer, x, model.cfg, positions, None)
+    return L.apply_norm(enc.norm, x)
+
+
+def _memory_for(model: CausalLM, frames, patches):
+    """Cross-attention memory from the (stubbed) modality frontend."""
+    family = model.cfg.family
+    need = {"audio": ("frames", frames), "vlm": ("patches", patches)}
+    if family in need:
+        name, value = need[family]
+        if value is None:
+            raise ValueError(f"the {family} family needs {name!r}")
+        return (_encode_audio(model, value) if family == "audio"
+                else _frontend(model, value))
+    return None
+
+
+def _cross_kv(p: L.Attention, memory: torch.Tensor):
+    dt = memory.dtype
+    return (torch.einsum("btd,dhk->bthk", memory, p.wk.to(dt)),
+            torch.einsum("btd,dhk->bthk", memory, p.wv.to(dt)))
+
+
+def _cross_attention(p: L.Attention, x, memory, cfg: ArchConfig):
+    """Cross-attention: queries from x, keys/values from memory."""
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
+    k, v = _cross_kv(p, memory.to(x.dtype))
+    if cfg.qk_norm:
+        q = L.rmsnorm(q, p.q_norm)
+        k = L.rmsnorm(k, p.k_norm)
+    return L.attn_out(p, L.attention(q, k, v, causal=False))
+
+
+def _quantize_kv(x: torch.Tensor):
+    """(…, Hkv, hd) → (int8 values, (…, Hkv) bf16 scales); rounds half to
+    even, as the reference's ``jnp.round``."""
+    xf = x.to(torch.float32)
+    s = torch.clamp(xf.abs().amax(-1), min=1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s.to(COMPUTE_DTYPE)
+
+
+def _fill_kv(c: Dict, typ: str, k, v) -> None:
+    """Write a prefill's K/V (B, S, Hkv, hd) into one layer's cache."""
+    s = k.shape[1]
+    if typ == "local":  # the last min(S, w) positions into slots pos % w
+        w = c["k"].shape[1]
+        take = min(s, w)
+        tpos = torch.arange(s - take, s, device=k.device)
+        slots = tpos % w
+        c["k"][:, slots] = k[:, s - take:]
+        c["v"][:, slots] = v[:, s - take:]
+        c["pos_abs"][:, slots] = tpos.to(torch.int32)
+        return
+    if s > c["k"].shape[1]:
+        raise ValueError(f"a prefill of {s} tokens does not fit a cache of"
+                         f" {c['k'].shape[1]} positions")
+    if "kscale" in c:  # int8 KV view
+        k, c["kscale"][:, :s] = _quantize_kv(k)
+        v, c["vscale"][:, :s] = _quantize_kv(v)
+    c["k"][:, :s] = k
+    c["v"][:, :s] = v
+
+
+def _layer(p: Layer, x, cfg: ArchConfig, positions, memory,
+           c: Optional[Dict] = None):
+    """The parallel pass of one layer.  With its cache ``c`` (prefill) it
+    also fills the layer's decode state in place.  Returns (x, MoE aux)."""
+    typ = p.typ
+    if typ in SELF_ATTN_TYPES:
+        window = cfg.local_window if typ == "local" else None
+        acfg = _attn_cfg(cfg, window=window, causal=(typ != "enc"))
+        h = L.apply_norm(p.ln1, x)
+        q, k, v = L.attn_qkv(p.attn, h, acfg, positions)
+        o = L.attention(q, k, v, causal=acfg.causal, window=window)
+        x = x + L.attn_out(p.attn, o)
+        if c is not None:
+            _fill_kv(c, typ, k, v)
+        if typ == "dec":
+            h = L.apply_norm(p.lnx, x)
+            x = x + _cross_attention(p.xattn, h, memory, cfg)
+            if c is not None:
+                c["xk"], c["xv"] = _cross_kv(p.xattn, memory.to(x.dtype))
+        h = L.apply_norm(p.ln2, x)
+        if typ == "moe":
+            y, aux = L.moe_block(p.moe, h, _moe_cfg(cfg), cfg.act)
+            return x + y, aux
+        return x + L.mlp_block(p.mlp, h, cfg.act), 0.0
     h = L.apply_norm(p.ln1, x)
-    q, k, v = L.attn_qkv(p.attn, h, acfg, positions)
-    x = x + L.attn_out(p.attn, L.attention(q, k, v, causal=True))
-    h = L.apply_norm(p.ln2, x)
-    return x + L.mlp_block(p.mlp, h, cfg.act), k, v
+    if typ == "xattn":
+        if c is not None:
+            c["xk"], c["xv"] = _cross_kv(p.xattn, memory.to(x.dtype))
+        o = _cross_attention(p.xattn, h, memory, cfg)
+        x = x + torch.tanh(p.xgate).to(x.dtype) * o
+        h = L.apply_norm(p.ln2, x)
+        m = L.mlp_block(p.mlp, h, cfg.act)
+        return x + torch.tanh(p.mgate).to(x.dtype) * m, 0.0
+    if typ == "rglru":
+        if c is None:
+            o = R.rglru_block(p.rec, h)
+        else:
+            o, state = R.rglru_block_prefill(p.rec, h)
+            c.update(state)
+        x = x + o
+        h = L.apply_norm(p.ln2, x)
+        return x + L.mlp_block(p.mlp, h, cfg.act), 0.0
+    if typ == "mlstm":
+        if c is None:
+            return x + R.mlstm_block(p.lstm, h, _mlstm_cfg(cfg)), 0.0
+        o, state = R.mlstm_block_prefill(p.lstm, h, _mlstm_cfg(cfg))
+    else:  # slstm
+        o, state = R.slstm_block_prefill(p.lstm, h, _slstm_cfg(cfg))
+    if c is not None:
+        c.update(state)
+    return x + o, 0.0
+
+
+def _start(model: CausalLM, tokens, frames, patches):
+    """Embedded tokens (+ learned positions), the positions and the
+    cross-attention memory of a parallel pass."""
+    x = _embed_tokens(model, tokens)
+    s = x.shape[1]
+    if model.pos_embed is not None:
+        x = x + model.pos_embed[:s].to(x.dtype)[None]
+    positions = torch.arange(s, device=x.device)
+    return x, positions, _memory_for(model, frames, patches)
 
 
 @torch.no_grad()
-def forward(model: CausalLM, tokens: torch.Tensor) -> torch.Tensor:
-    """Parallel pass. tokens (B, S) → logits (B, S, V) bf16."""
-    cfg = model.cfg
-    x = _embed_tokens(model, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
+def forward(model: CausalLM, tokens: torch.Tensor, *, frames=None,
+            patches=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Parallel pass.  tokens (B, S) [+ frames (B, T, frontend_dim) for
+    audio | patches (B, T, frontend_dim) for vision].  Returns (logits
+    (B, S, V) bf16, the MoE aux summed over layers, an f32 scalar)."""
+    x, positions, memory = _start(model, tokens, frames, patches)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        x, _k, _v = _apply_layer(layer, x, cfg, positions)
-    return unembed(model, x)
+        x, a = _layer(layer, x, model.cfg, positions, memory)
+        aux = aux + a
+    return unembed(model, x), aux
 
 
 # ---------------------------------------------------------------------------
 # decode cache
 # ---------------------------------------------------------------------------
 
-def init_cache(model: CausalLM, batch: int, max_len: int) -> Dict[str, Any]:
-    """Per layer a dense K and V (B, max_len, Hkv, hd) bf16, and ``pos``
-    (B,) int32: the tokens held."""
-    cfg = model.cfg
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.hd)
+def _layer_cache(typ: str, cfg: ArchConfig, batch: int, max_len: int,
+                 kv_int8: bool, dev) -> Dict[str, torch.Tensor]:
+    """Zeros (ring positions -1, stabilisers -1e30) of one layer's state."""
+    hkv, hd = cfg.num_kv_heads, cfg.hd
+
+    def zeros(shape, dtype=COMPUTE_DTYPE):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if typ in KV_TYPES:
+        shape = (batch, max_len, hkv, hd)
+        kv_dt = torch.int8 if kv_int8 else COMPUTE_DTYPE
+        c = {"k": zeros(shape, kv_dt), "v": zeros(shape, kv_dt)}
+        if kv_int8:  # §4 multi-representation view: int8 KV + scales
+            c["kscale"] = zeros((batch, max_len, hkv))
+            c["vscale"] = zeros((batch, max_len, hkv))
+        if typ == "dec":  # cross-KV from the encoder output
+            t = cfg.num_frontend_tokens
+            c["xk"] = zeros((batch, t, hkv, hd))
+            c["xv"] = zeros((batch, t, hkv, hd))
+        return c
+    if typ == "local":
+        w = min(cfg.local_window, max_len)
+        return {"k": zeros((batch, w, hkv, hd)),
+                "v": zeros((batch, w, hkv, hd)),
+                "pos_abs": torch.full((batch, w), -1, dtype=torch.int32,
+                                      device=dev)}
+    if typ == "xattn":
+        t = cfg.num_frontend_tokens
+        return {"xk": zeros((batch, t, hkv, hd)),
+                "xv": zeros((batch, t, hkv, hd))}
+    if typ == "rglru":
+        return R.rglru_init_state(batch, cfg.rnn_width or cfg.d_model,
+                                  device=dev)
+    if typ == "mlstm":
+        return R.mlstm_init_state(batch, _mlstm_cfg(cfg), device=dev)
+    if typ == "slstm":
+        return R.slstm_init_state(batch, _slstm_cfg(cfg), device=dev)
+    raise ValueError(f"unknown layer type {typ!r}")
+
+
+def init_cache(model: CausalLM, batch: int, max_len: int,
+               kv_int8: bool = False) -> Dict[str, Any]:
+    """Per layer its decode state: a dense K/V (B, max_len, Hkv, hd) bf16
+    for ``attn``/``moe``/``dense0``/``dec`` (int8 with bf16 per-position
+    scales ``kscale``/``vscale`` (B, max_len, Hkv) under ``kv_int8``), a
+    ring of min(local_window, max_len) slots with their absolute
+    positions ``pos_abs`` for ``local``, cross-KV ``xk``/``xv`` (B,
+    T_frontend, Hkv, hd) for ``xattn`` and ``dec``, the recurrent states
+    of ``rglru``/``mlstm``/``slstm``; and ``pos`` (B,) int32: the tokens
+    held."""
     dev = model.device
     return {
-        "layers": [{"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=dev),
-                    "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=dev)}
-                   for _ in model.layers],
+        "layers": [_layer_cache(layer.typ, model.cfg, batch, max_len,
+                                kv_int8, dev) for layer in model.layers],
         "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
     }
 
@@ -331,13 +608,16 @@ def init_cache(model: CausalLM, batch: int, max_len: int) -> Dict[str, Any]:
 # decode step
 # ---------------------------------------------------------------------------
 
-def _decode_attention(q, k, v, valid_mask):
-    """q: (B,1,Hq,hd) bf16; k/v: (B,L,Hkv,hd) bf16; valid_mask: (B,L).
+def _decode_attention(q, k, v, valid_mask=None, k_scale=None, v_scale=None):
+    """q: (B,1,Hq,hd) bf16; k/v: (B,L,Hkv,hd) bf16 or int8; valid_mask:
+    (B,L) or None (every position).
 
-    Scores and the weighted sum take the bf16 operands with f32
-    accumulation (the products of bf16 values are exact in f32); the
-    probabilities are rounded to bf16 before the second product, as in
-    the reference.  Returns (B,1,Hq,hd) f32."""
+    Scores and the weighted sum take the stored values with f32
+    accumulation (the products of bf16 or int8 values are exact in f32);
+    the probabilities are rounded to bf16 before the second product, as
+    in the reference.  An int8 view's scores are rescaled by ``k_scale``
+    (B, L, Hkv) per position and its probabilities by ``v_scale`` before
+    that rounding.  Returns (B,1,Hq,hd) f32."""
     b, _, hq, hd = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -345,11 +625,17 @@ def _decode_attention(q, k, v, valid_mask):
     qg = q.reshape(b, hkv, g, hd)
     s = torch.einsum("bhgd,blhd->bhgl", qg.to(torch.float32),
                      k.to(torch.float32))
+    if k_scale is not None:
+        s = s * k_scale.to(torch.float32).permute(0, 2, 1)[:, :, None]
     s = s * scale
-    s = torch.where(valid_mask[:, None, None, :], s,
-                    torch.tensor(L.NEG_INF, dtype=s.dtype, device=s.device))
+    if valid_mask is not None:
+        s = torch.where(valid_mask[:, None, None, :], s,
+                        torch.tensor(L.NEG_INF, dtype=s.dtype,
+                                     device=s.device))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgl,blhd->bhgd", p.to(v.dtype).to(torch.float32),
+    if v_scale is not None:
+        p = p * v_scale.to(torch.float32).permute(0, 2, 1)[:, :, None]
+    o = torch.einsum("bhgl,blhd->bhgd", p.to(COMPUTE_DTYPE).to(torch.float32),
                      v.to(torch.float32))
     return o.reshape(b, 1, hq, hd)
 
@@ -369,21 +655,65 @@ def _step_attn_common(p: L.Attention, h, cfg: ArchConfig, pos):
     return q, k, v
 
 
-def _step_layer(p: DenseLayer, c: Dict, x, cfg: ArchConfig, pos):
-    """One-token update of one layer, writing its K/V into ``c`` in place.
+def _step_cross(p: L.Attention, h, c: Dict):
+    """The new token's cross-attention over the cached cross-KV; the
+    query takes no qk-norm, as in the reference's step."""
+    qx = torch.einsum("bsd,dhk->bshk", h, p.wq.to(h.dtype))
+    return L.attn_out(p, _decode_attention(qx, c["xk"], c["xv"]).to(h.dtype))
+
+
+def _step_layer(p: Layer, c: Dict, x, cfg: ArchConfig, pos):
+    """One-token update of one layer, its state ``c`` updated in place.
     x: (B,1,D); pos: (B,) int32."""
-    b = x.shape[0]
-    bidx = torch.arange(b, device=x.device)
+    typ = p.typ
+    bidx = torch.arange(x.shape[0], device=x.device)
+    lpos = pos.long()
     h = L.apply_norm(p.ln1, x)
-    q, k, v = _step_attn_common(p.attn, h, cfg, pos)
-    c["k"][bidx, pos.long()] = k[:, 0]
-    c["v"][bidx, pos.long()] = v[:, 0]
-    lpos = torch.arange(c["k"].shape[1], device=x.device)[None, :]
-    valid = lpos <= pos[:, None]
-    o = _decode_attention(q, c["k"], c["v"], valid)
-    x = x + L.attn_out(p.attn, o.to(x.dtype))
-    h = L.apply_norm(p.ln2, x)
-    return x + L.mlp_block(p.mlp, h, cfg.act)
+    if typ in KV_TYPES or typ == "local":
+        q, k, v = _step_attn_common(p.attn, h, cfg, pos)
+        k, v = k[:, 0], v[:, 0]
+        if typ == "local":
+            slot = lpos % c["k"].shape[1]
+            c["k"][bidx, slot] = k
+            c["v"][bidx, slot] = v
+            c["pos_abs"][bidx, slot] = pos
+            pa = c["pos_abs"]
+            valid = (pa >= 0) & (pa <= pos[:, None]) & (
+                pa > pos[:, None] - cfg.local_window)
+        else:
+            if "kscale" in c:  # int8 KV view
+                k, c["kscale"][bidx, lpos] = _quantize_kv(k)
+                v, c["vscale"][bidx, lpos] = _quantize_kv(v)
+            c["k"][bidx, lpos] = k
+            c["v"][bidx, lpos] = v
+            valid = (torch.arange(c["k"].shape[1], device=x.device)[None, :]
+                     <= pos[:, None])
+        o = _decode_attention(q, c["k"], c["v"], valid, c.get("kscale"),
+                              c.get("vscale"))
+        x = x + L.attn_out(p.attn, o.to(x.dtype))
+        if typ == "dec":
+            x = x + _step_cross(p.xattn, L.apply_norm(p.lnx, x), c)
+        h = L.apply_norm(p.ln2, x)
+        if typ == "moe":  # over the step's B tokens: capacity at least 8
+            return x + L.moe_block(p.moe, h, _moe_cfg(cfg), cfg.act)[0]
+        return x + L.mlp_block(p.mlp, h, cfg.act)
+    if typ == "xattn":
+        x = x + torch.tanh(p.xgate).to(x.dtype) * _step_cross(p.xattn, h, c)
+        h = L.apply_norm(p.ln2, x)
+        m = L.mlp_block(p.mlp, h, cfg.act)
+        return x + torch.tanh(p.mgate).to(x.dtype) * m
+    if typ == "rglru":
+        state, o = R.rglru_block_step(p.rec, c, h[:, 0])
+        c.update(state)
+        x = x + o[:, None]
+        h = L.apply_norm(p.ln2, x)
+        return x + L.mlp_block(p.mlp, h, cfg.act)
+    if typ == "mlstm":
+        state, o = R.mlstm_block_step(p.lstm, c, h[:, 0], _mlstm_cfg(cfg))
+    else:  # slstm
+        state, o = R.slstm_block_step(p.lstm, c, h[:, 0], _slstm_cfg(cfg))
+    c.update(state)
+    return x + o[:, None]
 
 
 @torch.no_grad()
@@ -391,11 +721,12 @@ def decode_step(model: CausalLM, cache: Dict, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step. tokens: (B, 1). Returns (logits (B,1,V), cache),
     the cache updated in place (pos + 1)."""
-    cfg = model.cfg
     pos = cache["pos"]
     x = _embed_tokens(model, tokens)
+    if model.pos_embed is not None:
+        x = x + model.pos_embed[pos.long()][:, None].to(x.dtype)
     for layer, c in zip(model.layers, cache["layers"]):
-        x = _step_layer(layer, c, x, cfg, pos)
+        x = _step_layer(layer, c, x, model.cfg, pos)
     cache["pos"] = pos + 1
     return unembed(model, x), cache
 
@@ -404,24 +735,15 @@ def decode_step(model: CausalLM, cache: Dict, tokens: torch.Tensor
 # prefill: parallel pass that also fills the decode cache
 # ---------------------------------------------------------------------------
 
-def _prefill_layer(p: DenseLayer, c: Dict, x, cfg: ArchConfig, positions):
-    x, k, v = _apply_layer(p, x, cfg, positions)
-    s = k.shape[1]
-    c["k"][:, :s] = k
-    c["v"][:, :s] = v
-    return x
-
-
 @torch.no_grad()
-def prefill(model: CausalLM, tokens: torch.Tensor, cache: Dict
-            ) -> Tuple[torch.Tensor, Dict]:
-    """Parallel prefill of ``tokens`` (B, S); fills the cache in place and
-    returns the last token's logits (B, 1, V) and the cache (pos = S)."""
-    cfg = model.cfg
-    b, s = tokens.shape
-    x = _embed_tokens(model, tokens)
-    positions = torch.arange(s, device=x.device)
+def prefill(model: CausalLM, tokens: torch.Tensor, cache: Dict, *,
+            frames=None, patches=None) -> Tuple[torch.Tensor, Dict]:
+    """Parallel prefill of ``tokens`` (B, S) [+ the frontend input, as
+    ``forward``]; fills the cache in place and returns the last token's
+    logits (B, 1, V) and the cache (pos = S)."""
+    x, positions, memory = _start(model, tokens, frames, patches)
     for layer, c in zip(model.layers, cache["layers"]):
-        x = _prefill_layer(layer, c, x, cfg, positions)
+        x, _ = _layer(layer, x, model.cfg, positions, memory, c)
+    b, s = x.shape[:2]
     cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return unembed(model, x[:, -1:]), cache

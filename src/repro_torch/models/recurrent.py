@@ -1,0 +1,437 @@
+"""Recurrent sequence mixers: RG-LRU (Griffin), mLSTM & sLSTM (xLSTM).
+
+Port of ``repro.models.recurrent``.  The parallel (forward / prefill)
+passes keep the reference's forms: a log-depth scan of the RG-LRU's
+linear recurrence in f32 (the reference's associative scan, combined in
+another order), the mLSTM's chunked stabilised gated-attention form with
+``chunk=256``, and the sLSTM as a sequential loop (it is inherently
+serial).  The decode paths are single-step state updates.  The modules
+``RGLRU``, ``MLstm`` and ``SLstm`` hold the parameters (their
+constructors take the place of ``init_rglru``, ``init_mlstm`` and
+``init_slstm``): projections and conv weights in bf16, the values the
+reference uses uncast in f32 (``rg_a`` and the sLSTM's ``r_*``) in f32.
+
+Two limits of the reference are kept and raise here instead of
+misbehaving: the mLSTM's parallel core needs S ≤ 256 or S % 256 == 0,
+and a prefill's conv tail needs S ≥ conv_width − 1.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import (
+    COMPUTE_DTYPE,
+    gelu,
+    sigmoid,
+    silu,
+    weight,
+    zeros_f32,
+)
+
+RG_C = 8.0  # Griffin's fixed recurrence sharpness
+F32 = torch.float32
+
+
+def _conv_tail(u_raw: torch.Tensor, conv_width: int) -> torch.Tensor:
+    """The last conv_width-1 pre-conv inputs: a prefill's conv state."""
+    s = u_raw.shape[1]
+    if s < conv_width - 1:
+        raise ValueError(
+            f"a prefill of {s} tokens is shorter than the conv state's"
+            f" {conv_width - 1} (conv width {conv_width}): the reference's"
+            " state slice [S-(W-1):] is wrong there")
+    return u_raw[:, s - (conv_width - 1):]
+
+
+# ---------------------------------------------------------------------------
+# causal conv1d (width W, per-channel)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x, w, b):
+    """x: (B,S,D); w: (W,D); b: (D).  Accumulates in x's dtype, one
+    rounding per product and per sum, as the reference's loop does."""
+    width = w.shape[0]
+    s = x.shape[1]
+    pads = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(width):
+        out = out + pads[:, i:i + s] * w[i].to(x.dtype)
+    return out + b.to(x.dtype)
+
+
+def conv1d_step(state, x_t, w, b):
+    """state: (B, W-1, D) previous inputs; x_t: (B, D).  The window's dot
+    with w accumulates in f32 and rounds once, as a bf16 einsum does."""
+    dt = x_t.dtype
+    window = torch.cat([state, x_t[:, None]], dim=1)  # (B, W, D)
+    out = (window.to(F32) * w.to(dt).to(F32)).sum(1).to(dt) + b.to(dt)
+    return window[:, 1:], out
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin, arXiv:2402.19427)
+# ---------------------------------------------------------------------------
+
+class RGLRU(torch.nn.Module):
+    """rg_in/rg_gate (D,W), rg_out (W,D), rg_gi/rg_gr (W,W), conv_w
+    (cw,W) and conv_b (W,) in bf16; rg_a (W,) f32, Λ drawn so that a^c
+    lies in about (0.9, 0.999)."""
+
+    def __init__(self, d_model: int, width: int, conv_width: int = 4, *,
+                 generator, device):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.rg_in = weight((d_model, width), d_model, **kw)
+        self.rg_gate = weight((d_model, width), d_model, **kw)
+        self.rg_out = weight((width, d_model), width, **kw)
+        self.rg_gi = weight((width, width), width, **kw)
+        self.rg_gr = weight((width, width), width, **kw)
+        rg_a = torch.empty((width,), dtype=F32, device=device)
+        if rg_a.device.type != "meta":
+            rg_a.uniform_(0.3, 0.8, generator=generator)
+            rg_a = torch.log(torch.expm1(rg_a))
+        self.rg_a = torch.nn.Parameter(rg_a, requires_grad=False)
+        self.conv_w = weight((conv_width, width), conv_width, **kw)
+        self.conv_b = torch.nn.Parameter(torch.zeros(
+            (width,), dtype=COMPUTE_DTYPE, device=device), requires_grad=False)
+
+
+def _rg_gates(p: RGLRU, u):
+    """u: (..., W) conv output → (a, gated_input) in f32."""
+    dt = u.dtype
+    r = sigmoid(u @ p.rg_gr.to(dt)).to(F32)
+    i = sigmoid(u @ p.rg_gi.to(dt)).to(F32)
+    softplus = torch.logaddexp(p.rg_a, torch.zeros_like(p.rg_a))
+    a = torch.exp(-RG_C * softplus * r)
+    mult = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+    return a, mult * i * u.to(F32)
+
+
+def _linear_scan(a, b):
+    """h_t = a_t h_(t-1) + b_t from h_(-1) = 0 along axis 1, in log2(S)
+    rounds of the reference's combine (a1 a2, a2 b1 + b2)."""
+    s = a.shape[1]
+    shift = 1
+    while shift < s:
+        b = torch.cat([b[:, :shift], a[:, shift:] * b[:, :-shift]
+                       + b[:, shift:]], dim=1)
+        a = torch.cat([a[:, :shift], a[:, shift:] * a[:, :-shift]], dim=1)
+        shift *= 2
+    return b
+
+
+def rglru_parallel(p: RGLRU, u):
+    """u: (B,S,W) → (B,S,W) via the scan over S."""
+    a, bterm = _rg_gates(p, u)
+    return _linear_scan(a, bterm).to(u.dtype)
+
+
+def rglru_step(p: RGLRU, state_h, u_t):
+    """state_h: (B,W) f32; u_t: (B,W) → (new_h, out)."""
+    a, bterm = _rg_gates(p, u_t)
+    h = a * state_h + bterm
+    return h, h.to(u_t.dtype)
+
+
+def _rglru_seq(p: RGLRU, x):
+    """(out (B,S,D), pre-conv u (B,S,W), f32 states (B,S,W))."""
+    dt = x.dtype
+    gate = gelu(x @ p.rg_gate.to(dt))
+    u_raw = x @ p.rg_in.to(dt)
+    u = causal_conv1d(u_raw, p.conv_w, p.conv_b)
+    a, bterm = _rg_gates(p, u)
+    h_seq = _linear_scan(a, bterm)
+    out = (h_seq.to(dt) * gate) @ p.rg_out.to(dt)
+    return out, u_raw, h_seq
+
+
+def rglru_block(p: RGLRU, x):
+    """Griffin recurrent block: gate branch ∥ (conv → RG-LRU), out proj."""
+    return _rglru_seq(p, x)[0]
+
+
+def rglru_block_prefill(p: RGLRU, x):
+    """Parallel block pass that also returns the decode state: the last
+    conv_width-1 *pre-conv* inputs and the final f32 h."""
+    out, u_raw, h_seq = _rglru_seq(p, x)
+    state = {"conv": _conv_tail(u_raw, p.conv_w.shape[0]).to(x.dtype),
+             "h": h_seq[:, -1]}
+    return out, state
+
+
+def rglru_block_step(p: RGLRU, state, x_t):
+    """x_t: (B, D); state: {"conv": (B,W-1,Wd), "h": (B,Wd) f32}."""
+    dt = x_t.dtype
+    gate = gelu(x_t @ p.rg_gate.to(dt))
+    u = x_t @ p.rg_in.to(dt)
+    conv_state, u = conv1d_step(state["conv"], u, p.conv_w, p.conv_b)
+    h_f32, h = rglru_step(p, state["h"], u)
+    out = (h * gate) @ p.rg_out.to(dt)
+    return {"conv": conv_state, "h": h_f32}, out
+
+
+def rglru_init_state(batch: int, width: int, conv_width: int = 4,
+                     dtype=COMPUTE_DTYPE, device="cpu"):
+    return {
+        "conv": torch.zeros((batch, conv_width - 1, width), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, width), dtype=F32, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM, arXiv:2405.04517) — matrix memory, parallel form
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLstmCfg:
+    d_model: int
+    num_heads: int
+    proj_factor: float = 2.0
+    conv_width: int = 4
+
+    @property
+    def inner(self) -> int:
+        return int(self.d_model * self.proj_factor)
+
+    @property
+    def head_dim(self) -> int:
+        return self.inner // self.num_heads
+
+
+class MLstm(torch.nn.Module):
+    """lstm_up (D,2U), lstm_q/k/v (U,U), lstm_i/f (U,H), lstm_down (U,D),
+    conv_w (cw,U) and conv_b (U,), all bf16."""
+
+    def __init__(self, cfg: MLstmCfg, *, generator, device):
+        super().__init__()
+        d, ud, h = cfg.d_model, cfg.inner, cfg.num_heads
+        kw = dict(generator=generator, device=device)
+        self.lstm_up = weight((d, 2 * ud), d, **kw)
+        self.lstm_q = weight((ud, ud), ud, **kw)
+        self.lstm_k = weight((ud, ud), ud, **kw)
+        self.lstm_v = weight((ud, ud), ud, **kw)
+        self.lstm_i = weight((ud, h), ud, **kw)
+        self.lstm_f = weight((ud, h), ud, **kw)
+        self.lstm_down = weight((ud, d), ud, **kw)
+        self.conv_w = weight((cfg.conv_width, ud), cfg.conv_width, **kw)
+        self.conv_b = torch.nn.Parameter(torch.zeros(
+            (ud,), dtype=COMPUTE_DTYPE, device=device), requires_grad=False)
+
+
+def _mlstm_parallel_core(q, k, v, i_raw, f_raw, chunk=256):
+    """q,k,v: (B,S,H,hd); i_raw,f_raw: (B,S,H). Returns (B,S,H,hd) in
+    q's dtype, in chunks of ``chunk`` query rows."""
+    b, s, h, hd = q.shape
+    if s > chunk and s % chunk:
+        raise ValueError(
+            f"the mLSTM's parallel pass takes S <= {chunk} or a multiple of"
+            f" {chunk}, not S = {s} (as the reference)")
+    scale = float(1.0 / np.sqrt(hd))
+    logf = F.logsigmoid(f_raw.to(F32))  # (B,S,H)
+    cumf = torch.cumsum(logf, dim=1)  # F_t
+    i_f = i_raw.to(F32)
+    kf, vf = k.to(F32), v.to(F32)
+    t_pos = torch.arange(s, device=q.device)
+
+    def block(qc, p0):
+        c = qc.shape[1]
+        fq = cumf[:, p0:p0 + c]  # (B,c,H)
+        dmat = fq[:, :, None, :] - cumf[:, None, :, :] + i_f[:, None, :, :]
+        mask = (p0 + torch.arange(c, device=q.device))[:, None] >= t_pos
+        dmat = torch.where(mask[None, :, :, None], dmat,
+                           torch.tensor(float("-inf"), device=q.device))
+        m = torch.clamp(dmat.amax(dim=2, keepdim=True), min=-1e30)
+        w = torch.exp(dmat - m)  # (B,c,S,H)
+        scores = torch.einsum("bchd,bshd->bcsh", qc.to(F32), kf) * scale
+        sw = scores * w
+        n = torch.maximum(sw.sum(dim=2).abs(), torch.exp(-m[:, :, 0, :]))
+        out = torch.einsum("bcsh,bshd->bchd", sw, vf)
+        return (out / n[..., None]).to(q.dtype)
+
+    if s <= chunk:
+        return block(q, 0)
+    return torch.cat([block(q[:, p0:p0 + chunk], p0)
+                      for p0 in range(0, s, chunk)], dim=1)
+
+
+def _mlstm_seq(p: MLstm, x, cfg: MLstmCfg):
+    """(out, pre-conv a, k, v, i_raw f32, f_raw f32) of the parallel pass."""
+    dt = x.dtype
+    b, s, _d = x.shape
+    ud, h, hd = cfg.inner, cfg.num_heads, cfg.head_dim
+    up = x @ p.lstm_up.to(dt)  # (B,S,2*ud)
+    a_raw, gate = up[..., :ud], up[..., ud:]
+    a = silu(causal_conv1d(a_raw, p.conv_w, p.conv_b))
+    q = (a @ p.lstm_q.to(dt)).reshape(b, s, h, hd)
+    k = (a @ p.lstm_k.to(dt)).reshape(b, s, h, hd)
+    v = (a @ p.lstm_v.to(dt)).reshape(b, s, h, hd)
+    i_raw = (a @ p.lstm_i.to(dt)).to(F32)  # (B,S,H)
+    f_raw = (a @ p.lstm_f.to(dt)).to(F32)
+    o = _mlstm_parallel_core(q, k, v, i_raw, f_raw)
+    out = (o.reshape(b, s, ud) * silu(gate)) @ p.lstm_down.to(dt)
+    return out, a_raw, k, v, i_raw, f_raw
+
+
+def mlstm_block(p: MLstm, x, cfg: MLstmCfg):
+    return _mlstm_seq(p, x, cfg)[0]
+
+
+def mlstm_block_prefill(p: MLstm, x, cfg: MLstmCfg):
+    """Parallel block pass that also returns the decode state (C, n, m).
+
+    The closed form of the stabilized recurrence after S steps:
+      m_S = max_t (i_t + F_S − F_t),     F_t = Σ_{j≤t} log σ(f_j)
+      C_S = Σ_t exp(i_t + F_S − F_t − m_S) · v_t k_tᵀ
+      n_S = Σ_t exp(i_t + F_S − F_t − m_S) · k_t
+    which matches unrolling mlstm_block_step.
+    """
+    out, a_raw, k, v, i_raw, f_raw = _mlstm_seq(p, x, cfg)
+    conv = _conv_tail(a_raw, cfg.conv_width)
+    cumf = torch.cumsum(F.logsigmoid(f_raw), dim=1)
+    w = i_raw + (cumf[:, -1:, :] - cumf)  # (B,S,H)
+    m_s = w.amax(dim=1)  # (B,H)
+    ew = torch.exp(w - m_s[:, None, :])  # (B,S,H)
+    kf, vf = k.to(F32), v.to(F32)
+    c_s = torch.einsum("bshv,bshk->bhvk", ew[..., None] * vf, kf)
+    n_s = torch.einsum("bsh,bshk->bhk", ew, kf)
+    return out, {"conv": conv, "C": c_s, "n": n_s, "m": m_s}
+
+
+def mlstm_init_state(batch: int, cfg: MLstmCfg, dtype=COMPUTE_DTYPE,
+                     device="cpu"):
+    h, hd = cfg.num_heads, cfg.head_dim
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.inner),
+                            dtype=dtype, device=device),
+        "C": torch.zeros((batch, h, hd, hd), dtype=F32, device=device),
+        "n": torch.zeros((batch, h, hd), dtype=F32, device=device),
+        "m": torch.full((batch, h), -1e30, dtype=F32, device=device),
+    }
+
+
+def mlstm_block_step(p: MLstm, state, x_t, cfg: MLstmCfg):
+    dt = x_t.dtype
+    b = x_t.shape[0]
+    ud, h, hd = cfg.inner, cfg.num_heads, cfg.head_dim
+    up = x_t @ p.lstm_up.to(dt)
+    a, gate = up[..., :ud], up[..., ud:]
+    conv_state, a = conv1d_step(state["conv"], a, p.conv_w, p.conv_b)
+    a = silu(a)
+    q = (a @ p.lstm_q.to(dt)).reshape(b, h, hd).to(F32)
+    k = (a @ p.lstm_k.to(dt)).reshape(b, h, hd).to(F32)
+    v = (a @ p.lstm_v.to(dt)).reshape(b, h, hd).to(F32)
+    i_raw = (a @ p.lstm_i.to(dt)).to(F32)  # (B,H)
+    f_raw = (a @ p.lstm_f.to(dt)).to(F32)
+    logf = F.logsigmoid(f_raw)
+    m_new = torch.maximum(logf + state["m"], i_raw)
+    i_s = torch.exp(i_raw - m_new)[..., None]  # (B,H,1)
+    f_s = torch.exp(logf + state["m"] - m_new)[..., None]
+    scale = float(1.0 / np.sqrt(hd))
+    c_new = f_s[..., None] * state["C"] + i_s[..., None] * (
+        v[..., :, None] * k[..., None, :])  # (B,H,hd,hd) outer product v kᵀ
+    n_new = f_s * state["n"] + i_s * k
+    qs = q * scale
+    num = torch.einsum("bhvk,bhk->bhv", c_new, qs)
+    den = torch.maximum(torch.einsum("bhk,bhk->bh", n_new, qs).abs(),
+                        torch.exp(-m_new))
+    o = (num / den[..., None]).reshape(b, ud).to(dt)
+    o = o * silu(gate)
+    out = o @ p.lstm_down.to(dt)
+    return {"conv": conv_state, "C": c_new, "n": n_new, "m": m_new}, out
+
+
+# ---------------------------------------------------------------------------
+# sLSTM — scalar memory, sequential
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SLstmCfg:
+    d_model: int
+    num_heads: int
+    proj_factor: float = 1.0
+
+    @property
+    def inner(self) -> int:
+        return int(self.d_model * self.proj_factor)
+
+
+class SLstm(torch.nn.Module):
+    """lstm_z/i/f/o (D,U) and lstm_down (U,D) in bf16; the diagonal
+    recurrent weights r_z/i/f/o (U,) in f32, zero at init."""
+
+    def __init__(self, cfg: SLstmCfg, *, generator, device):
+        super().__init__()
+        d, ud = cfg.d_model, cfg.inner
+        kw = dict(generator=generator, device=device)
+        self.lstm_z = weight((d, ud), d, **kw)
+        self.lstm_i = weight((d, ud), d, **kw)
+        self.lstm_f = weight((d, ud), d, **kw)
+        self.lstm_o = weight((d, ud), d, **kw)
+        self.r_z = zeros_f32(ud, device)
+        self.r_i = zeros_f32(ud, device)
+        self.r_f = zeros_f32(ud, device)
+        self.r_o = zeros_f32(ud, device)
+        self.lstm_down = weight((ud, d), ud, **kw)
+
+
+def slstm_init_state(batch: int, cfg: SLstmCfg, device="cpu"):
+    def z():
+        return torch.zeros((batch, cfg.inner), dtype=F32, device=device)
+
+    return {"c": z(), "n": z(), "h": z(),
+            "m": torch.full((batch, cfg.inner), -1e30, dtype=F32,
+                            device=device)}
+
+
+def _slstm_cell(p: SLstm, state, zx, ix, fx, ox):
+    """One step; gate pre-activations from input already computed."""
+    h_prev = state["h"]
+    z = torch.tanh(zx + p.r_z * h_prev)
+    i_raw = ix + p.r_i * h_prev
+    f_raw = fx + p.r_f * h_prev
+    o = sigmoid(ox + p.r_o * h_prev)
+    logf = F.logsigmoid(f_raw)
+    m_new = torch.maximum(logf + state["m"], i_raw)
+    i_s = torch.exp(i_raw - m_new)
+    f_s = torch.exp(logf + state["m"] - m_new)
+    c = f_s * state["c"] + i_s * z
+    n = torch.clamp(f_s * state["n"] + i_s, min=1e-6)
+    h = o * (c / n)
+    return {"c": c, "n": n, "h": h, "m": m_new}
+
+
+def _slstm_gates(p: SLstm, x):
+    dt = x.dtype
+    return tuple((x @ w.to(dt)).to(F32)
+                 for w in (p.lstm_z, p.lstm_i, p.lstm_f, p.lstm_o))
+
+
+def slstm_block_prefill(p: SLstm, x, cfg: SLstmCfg):
+    """Sequential block pass that also returns the final decode state."""
+    dt = x.dtype
+    zx, ix, fx, ox = _slstm_gates(p, x)
+    state = slstm_init_state(x.shape[0], cfg, device=x.device)
+    hs = []
+    for t in range(x.shape[1]):
+        state = _slstm_cell(p, state, zx[:, t], ix[:, t], fx[:, t],
+                            ox[:, t])
+        hs.append(state["h"])
+    h = torch.stack(hs, dim=1).to(dt)  # (B,S,ud)
+    return h @ p.lstm_down.to(dt), state
+
+
+def slstm_block(p: SLstm, x, cfg: SLstmCfg):
+    """x: (B,S,D) → a sequential loop over S (inherently serial)."""
+    return slstm_block_prefill(p, x, cfg)[0]
+
+
+def slstm_block_step(p: SLstm, state, x_t, cfg: SLstmCfg):
+    dt = x_t.dtype
+    new_state = _slstm_cell(p, state, *_slstm_gates(p, x_t))
+    out = new_state["h"].to(dt) @ p.lstm_down.to(dt)
+    return new_state, out

@@ -11,7 +11,9 @@ Port of ``repro.serving.engine``.  Flow per scheduler round:
      is the paged decode-attention kernel (GOP-paged KV), once per layer,
   4. finished requests retire their pages into the LRU_VSS prefix cache.
 
-Serves the dense-attention ("attn"-pattern) families.  Everything runs
+Serves the dense-attention ("attn"-pattern) families; the others serve
+through the dense-cache path, ``models.model.prefill`` and
+``decode_step``, as in the reference.  Everything runs
 eagerly on the model's device (``"cuda"`` unless the caller asks for the
 CPU): the prefill's K/V go into the pool, and each round's new K/V into
 their slot pages, by indexed writes on the device.  Only the block
@@ -65,8 +67,11 @@ class ServingEngine:
         max_batch: int = 8,
         eos_id: Optional[int] = None,
     ):
-        if set(cfg.pattern) != {"attn"}:
-            raise ValueError("the paged engine serves dense ('attn') archs")
+        if set(M.layer_types(M.layer_plan(cfg))) != {"attn"}:
+            raise ValueError(
+                f"the paged engine serves dense ('attn') archs, not"
+                f" {cfg.name} ({'/'.join(cfg.pattern)}): serve it through"
+                " models.model.prefill and decode_step (the dense-cache path)")
         self.cfg = cfg
         self.model = model
         self.device = model.device
@@ -130,18 +135,12 @@ class ServingEngine:
                 _Active(req, page_ids, len(kv_tokens), prompt[-1])
             )
 
-    @torch.no_grad()
     def _prefill(self, tokens: torch.Tensor):
         """Dense parallel prefill returning per-layer K/V (L, S, Hkv, hd)."""
-        cfg = self.cfg
-        x = M._embed_tokens(self.model, tokens)
-        positions = torch.arange(tokens.shape[1], device=self.device)
-        ks, vs = [], []
-        for layer in self.model.layers:
-            x, k, v = M._apply_layer(layer, x, cfg, positions)
-            ks.append(k[0])
-            vs.append(v[0])
-        return torch.stack(ks), torch.stack(vs)
+        cache = M.init_cache(self.model, 1, tokens.shape[1])
+        M.prefill(self.model, tokens, cache)
+        return (torch.stack([c["k"][0] for c in cache["layers"]]),
+                torch.stack([c["v"][0] for c in cache["layers"]]))
 
     # -- batched paged decode ----------------------------------------------------
     @torch.no_grad()

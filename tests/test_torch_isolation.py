@@ -1,7 +1,8 @@
 """The port stands alone: ``src/repro_torch`` and the chip scripts import
 neither ``jax`` nor the JAX package ``repro`` (``repro_torch`` is not
 ``repro``), the package works with both blocked (stores written and
-read, one on ``tiered:remote``; a smoke LM served; the video service
+read, one on ``tiered:remote``; a smoke LM served, and a recurrent and
+an encoder-decoder smoke LM prefilled and stepped; the video service
 answering one read), and without a card the default device raises
 instead of running on the CPU."""
 import ast
@@ -96,6 +97,15 @@ def test_package_works_with_jax_and_reference_blocked(tmp_path):
         rid = eng.submit(list(range(3, 23)), max_new=3)
         out = eng.run()[rid].out
         assert len(out) == 3 and eng.metrics["decode_steps"] == 3
+        # the dense-cache path of a recurrent and an encoder-decoder family
+        for arch, extra in (("xlstm-1.3b", {{}}), ("whisper-large-v3", {{
+                "frames": torch.zeros((1, 16, 32))}})):
+            lm = M.init_model(smoke_config(arch), device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+            cache = M.init_cache(lm, 1, 12)
+            M.prefill(lm, torch.arange(3, 11)[None], cache, **extra)
+            logits, cache = M.decode_step(lm, cache, torch.tensor([[5]]))
+            assert logits.shape == (1, 1, 512) and int(cache["pos"][0]) == 9
         # the video service over a CPU store: one read, one segment
         import json
         from repro_torch.serving.config import boot_from_json
