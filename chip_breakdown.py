@@ -24,7 +24,13 @@ prints:
   requests), with the device time split into the paged attention (its
   split kernel and its combine kernel, the combine also on a line of
   its own), the bf16 matrix products, the pool's indexed writes and the
-  rest, and the host's share (wall time the device was idle).
+  rest, and the host's share (wall time the device was idle);
+- the same for one train step of ``chip_smoke.py``'s training phase
+  (phi3-mini at full width cut to 8 layers, batch 8 x 1024 in two
+  microbatches, after two warm-up steps), with the device time split
+  into the f32 attention products, the bf16 matrix products, softmax,
+  copies and casts, and the rest (elementwise passes and reductions:
+  norms, rope, activations, the gradient sums, clip and AdamW).
 
 Every time stands beside the card's ``nvidia-smi`` name and power
 limit.  It checks nothing that ``chip_smoke.py`` does not; it is the
@@ -32,6 +38,7 @@ diagnosis behind PERF.md's "Where the time goes".
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import sys
 import tempfile
@@ -147,7 +154,41 @@ def main() -> int:
         print(f"  of which the paged attention's combine kernel"
               f" {combine:.4f} s ({share:.4f} of the paged attention)"
               f" [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    train_breakdown(card)
     return 0
+
+
+def train_breakdown(card) -> None:
+    """One full-width train step of the training phase, profiled."""
+    cs = chip_smoke
+    cfg = dataclasses.replace(cs.get_config(cs.TRAIN_ARCH),
+                              num_layers=cs.TRAIN_LAYERS)
+    hyper = cs.TrainHyper(**cs.TRAIN_HYPER)
+    state = cs.init_train_state(0, cfg, hyper, device="cuda")
+    tok = cs.markov_corpus(cfg.vocab_size, cs.TRAIN_BATCH
+                           * (cs.TRAIN_SEQ + 1))
+    tok = tok.reshape(cs.TRAIN_BATCH, cs.TRAIN_SEQ + 1)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    grad_step = cs.make_grad_step(cfg, hyper)
+
+    def step():
+        nonlocal state
+        loss, grads = grad_step(state["params"], batch)
+        state, _metrics = cs.apply_grads(state, loss, grads, hyper)
+
+    step()
+    step()  # cuBLAS heuristics and the caching allocator warmed
+    torch.cuda.synchronize()
+    wall, busy, by_name = device_busy(step)
+    report("train step", wall, busy, by_name, card)
+    if busy is not None:
+        split = split_by_name(by_name, TRAIN_PARTS)
+        print("train step device time by part: " + ", ".join(
+            f"{k} {v * 1e3:.2f} ms" for k, v in split.items())
+              + f"; host (device idle) {(wall - busy) * 1e3:.2f} ms of"
+              f" {wall * 1e3:.2f} ms [{card}]")
 
 
 # kernel-name fragments of each part of a serving run's device time; the
@@ -167,6 +208,16 @@ JOINT_PARTS = (
     ("histogram", ("histogram_kernel",)),
     ("codec kernels", ("delta_encode_kernel", "delta_decode_kernel")),
     ("copies", ("memcpy", "memset")),
+)
+
+
+# the same for a train step: the f32 attention products (TF32 off: SIMT
+# sgemm), then the bf16 ones (cuBLAS's Hopper kernels), softmax, copies
+TRAIN_PARTS = (
+    ("f32 GEMMs (attention)", ("f32f32", "sgemm")),
+    ("bf16 GEMMs", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("softmax", ("softmax",)),
+    ("copies and casts", ("copy", "memcpy", "memset", "catarray")),
 )
 
 

@@ -142,7 +142,29 @@ and PyTorch built for CUDA.  In order it:
    phase must launch none of the hand-written kernels.  It prints the
    weights' GB, init, prefill and median decode-step times, tokens/s
    and the peak memory per family;
-11. prints one JSON line of per-kernel numbers, the card line, and the
+11. trains the LM (the training phase): (a) phi3-mini-3.8b at its
+   published widths cut to 8 of 32 layers (1.104 B parameters), f32
+   masters drawn on the card from seed 0, 8 steps of ``make_grad_step``
+   and ``apply_grads`` (two microbatches, warmup 2, cosine over 8) on
+   batches of 8 x 1024 tokens that a ``TokenPipeline`` reads from a
+   ``VSS`` on the card holding a seeded order-1 Markov corpus: the last
+   loss must be below the first and below ln V, every grad norm finite;
+   it prints each step's loss, grad norm and time split (data wait,
+   forward + backward, optimizer), the median step, tokens/s, peak
+   memory and the step's bound; (b) 3 steps on the card and on the CPU
+   from the same masters and batches (the smoke config, and full width
+   with one layer): loss, grad norm, m, v and the parameters' change
+   within ``VS_CPU``, and two planted faults (one layer's ``attn/wo``
+   gradient dropped, AdamW's bias correction left out) must each exceed
+   a limit; (c) the reference test's crash and resume through
+   ``Trainer`` and ``CheckpointManager`` on card stores (checkpoints
+   every 4 steps, a failure after 6, a resume at 4, on to 12) under
+   ``torch.use_deterministic_algorithms(True)``, in a process of its own
+   (``chip_smoke.py --crash-resume``, started with
+   ``CUBLAS_WORKSPACE_CONFIG`` set): the parameters equal an unbroken
+   run's bit for bit; (d) the phase runs none of the
+   hand-written kernels and none of their plain versions;
+12. prints one JSON line of per-kernel numbers, the card line, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises, and the script exits non-zero without the
@@ -175,7 +197,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import codec  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_config  # noqa: E402
 from repro_torch.core import features, fingerprint, joint  # noqa: E402
 from repro_torch import storage as _storage  # noqa: E402
 from repro_torch.core.config import (  # noqa: E402
@@ -187,6 +209,10 @@ from repro_torch.core.config import (  # noqa: E402
 from repro_torch.core.deferred import is_wrapped, unwrap_bytes  # noqa: E402
 from repro_torch.core.quality import exact_mse, exact_psnr  # noqa: E402
 from repro_torch.core.store import VSS  # noqa: E402
+from repro_torch.data.tokens import (  # noqa: E402
+    TokenPipeline,
+    write_token_corpus,
+)
 from repro_torch.data.video import (  # noqa: E402
     synthesize_overlapping_pair,
     synthesize_road,
@@ -199,6 +225,13 @@ from repro_torch.kernels import (  # noqa: E402
     paged_attention,
     ref,
 )
+from repro_torch.launch import steps as steps_mod  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    TrainHyper,
+    apply_grads,
+    init_train_state,
+    make_grad_step,
+)
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.obs import MetricsRegistry  # noqa: E402
@@ -210,6 +243,18 @@ from repro_torch.serving.config import (  # noqa: E402
 from repro_torch.serving.service import (  # noqa: E402
     VSSService,
     spec_from_json,
+)
+from repro_torch.train import (  # noqa: E402
+    CheckpointManager,
+    Trainer,
+    TrainerConfig,
+)
+from repro_torch.train.runner import SimulatedFailure  # noqa: E402
+from repro_torch.tree import (  # noqa: E402
+    leaf_paths,
+    leaves,
+    tree_map,
+    unflatten,
 )
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the f32 rate outside the
@@ -2584,6 +2629,424 @@ def nondense_phase(card, device="cuda", families=NONDENSE):
     return recs, launches
 
 
+# ---------------------------------------------------------------------------
+# training phase: the LM trained on the card (AdamW, EF, checkpoints on VSS)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "phi3-mini-3.8b"
+TRAIN_LAYERS = 8  # of phi3-mini's 32: the depth cut
+TRAIN_HYPER = dict(num_microbatches=2, warmup_steps=2, total_steps=8)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 8
+MARKOV_SUCCESSORS = 4  # each token's successors, drawn Zipf(ZIPF_S)
+ZIPF_S = 1.1
+# H100 SXM data sheet: dense bf16 tensor-core rate (the f32 rate, HBM
+# rate above)
+BF16_FLOPS = 989e12
+ADAMW_BYTES_PER_PARAM = 28  # f32 p, m, v read and written, f32 grad read
+# card against CPU, 3 steps from the same masters and batches: the limits.
+# Measured on an NVIDIA H100 80GB HBM3 at 700 W (the larger of the two
+# cases; repeated runs gave the same digits): loss 0.00177, grad norm
+# 0.00209 relative, m 0.0117, v 0.0123, the parameters' change 0.0775
+# (step 1 of AdamW is lr·sign(g): near-zero gradients flip), so a margin
+# of 2.4-2.8x.  The planted faults read at least: one wo gradient dropped
+# v 0.916; no bias correction loss 0.0385, the parameters' change 0.399.
+VS_CPU_STEPS = 3
+VS_CPU_CASES = (("smoke", None, 4, 32), ("full width, 1 layer", 1, 2, 64))
+VS_CPU = {"loss": 0.005, "grad_norm": 0.005, "m": 0.03, "v": 0.03,
+          "params": 0.2}
+# the crash-and-resume schedule of tests/test_torch_train.py
+RESUME = dict(every=4, fail=6, steps=12, batch=4, seq=32)
+# cuBLAS is deterministic under torch.use_deterministic_algorithms only
+# with its workspace fixed before its first call, for the whole process.
+# The setting leaves the serving rounds' device time as it is, but its
+# effect on their host side is unresolved (chip_cublas_ab.py), so only
+# the crash-and-resume check runs under it, in a process of its own
+# (``chip_smoke.py --crash-resume``), and every other phase as before.
+DETERMINISTIC_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+CRASH_RESUME_FLAG = "--crash-resume"
+
+
+def markov_corpus(vocab: int, n: int, seed: int = 0) -> np.ndarray:
+    """An order-1 Markov chain over the vocabulary: each token has
+    ``MARKOV_SUCCESSORS`` successors drawn Zipf(``ZIPF_S``) over the
+    vocabulary, taken with equal odds.  Its unigram and bigram structure
+    lets a model learn below ln V in a few steps; uniform tokens could
+    not."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = ranks ** -ZIPF_S
+    p /= p.sum()
+    succ = rng.choice(vocab, size=(vocab, MARKOV_SUCCESSORS), p=p)
+    pick = rng.integers(0, MARKOV_SUCCESSORS, n)
+    out = np.empty(n, np.int32)
+    tok = int(rng.integers(0, vocab))
+    for i in range(n):
+        tok = int(succ[tok, pick[i]])
+        out[i] = tok
+    return out
+
+
+def train_bound(state, cfg, batch: int, seq: int, layers: int):
+    """(bound ms, its parts): 6 · matmul parameters · tokens at the bf16
+    rate; the f32 attention's three S x S products forward and backward,
+    3 · 4·B·H·S²·hd a layer, at the f32 rate (TF32 off); AdamW's
+    ``ADAMW_BYTES_PER_PARAM`` bytes a parameter at the HBM rate."""
+    n_mm = sum(t.numel() for k, t in leaf_paths(state["params"])
+               if t.dim() >= 2 and k not in ("embed", "pos_embed"))
+    n_all = sum(t.numel() for t in leaves(state["params"]))
+    tokens = batch * seq
+    parts = {
+        "matmul": 6 * n_mm * tokens / BF16_FLOPS * 1e3,
+        "attention": 3 * 4 * batch * cfg.num_heads * seq * seq * cfg.hd
+        * layers / F32_OPS_PER_S * 1e3,
+        "adamw": ADAMW_BYTES_PER_PARAM * n_all / HBM_BYTES_PER_S * 1e3,
+    }
+    return sum(parts.values()), parts, n_mm, n_all
+
+
+def train_full_width(card, device="cuda", cfg=None, batch=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, steps=TRAIN_STEPS):
+    """(a) phi3-mini at its published widths cut to ``TRAIN_LAYERS``
+    layers, ``steps`` steps on a ``TokenPipeline`` over a card store of a
+    Markov corpus; the loss must fall below the first step's and ln V,
+    every grad norm be finite.  Returns the figures."""
+    cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH),
+                                     num_layers=TRAIN_LAYERS)
+    hyper = TrainHyper(**TRAIN_HYPER)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    need = steps * batch * (seq + 1)
+    tokens = markov_corpus(cfg.vocab_size, 2 * need)
+    with tempfile.TemporaryDirectory() as root:
+        vss = VSS(os.path.join(root, "data"), config=VSSConfig(device=device))
+        n = write_token_corpus(vss, "corpus", tokens)
+        pipe = TokenPipeline(vss, "corpus", n, batch=batch, seq=seq)
+        t0 = time.perf_counter()
+        state = init_train_state(0, cfg, hyper, device=device)
+        sync(device)
+        init_s = time.perf_counter() - t0
+        bound, parts, n_mm, n_all = train_bound(state, cfg, batch, seq,
+                                                cfg.num_layers)
+        print(f"  {cfg.name} cut to {cfg.num_layers} layers: {n_all / 1e9:.4f}"
+              f" B parameters ({n_mm / 1e9:.4f} B in matmuls), state drawn in"
+              f" {init_s:.3f} s; batch {batch} x {seq}, {hyper.num_microbatches}"
+              f" microbatches [{card}]", flush=True)
+        grad_step = make_grad_step(cfg, hyper)
+        rows = []
+        for s in range(steps):
+            t0 = time.perf_counter()
+            b = pipe.get(s)
+            t1 = time.perf_counter()
+            loss, grads = grad_step(state["params"], b)
+            sync(device)
+            t2 = time.perf_counter()
+            state, met = apply_grads(state, loss, grads, hyper)
+            del grads
+            sync(device)
+            t3 = time.perf_counter()
+            rows.append({"loss": float(met["loss"]),
+                         "grad_norm": float(met["grad_norm"]),
+                         "lr_scale": float(met["lr_scale"]),
+                         "data_s": t1 - t0, "fwd_bwd_s": t2 - t1,
+                         "opt_s": t3 - t2, "step_s": t3 - t0})
+            r = rows[-1]
+            print(f"    step {s + 1}: loss {r['loss']:.4f}, grad norm"
+                  f" {r['grad_norm']:.4f}, lr scale {r['lr_scale']:.4f},"
+                  f" {r['step_s'] * 1e3:.2f} ms (data {r['data_s'] * 1e3:.2f},"
+                  f" forward + backward {r['fwd_bwd_s'] * 1e3:.2f}, optimizer"
+                  f" {r['opt_s'] * 1e3:.2f}) [{card}]", flush=True)
+        pipe.close()
+        vss.close()
+    del state
+    later = rows[1:]
+    med = {k: float(np.median([r[k] for r in later])) * 1e3
+           for k in ("step_s", "data_s", "fwd_bwd_s", "opt_s")}
+    rec = {"step_ms": med["step_s"], "split_ms": med, "bound_ms": bound,
+           "bound_parts_ms": parts, "losses": [r["loss"] for r in rows],
+           "tokens_per_s": batch * seq / med["step_s"] * 1e3,
+           "pipeline": dict(vars(pipe.stats))}
+    if cuda:
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  median step (steps 2-{steps}) {med['step_s']:.2f} ms:"
+          f" data wait {med['data_s']:.2f}, forward + backward"
+          f" {med['fwd_bwd_s']:.2f}, optimizer {med['opt_s']:.2f};"
+          f" {rec['tokens_per_s']:.0f} tokens/s; bound {bound:.2f} ms ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+          + f"), {bound / med['step_s']:.3f} of it"
+          + (f"; peak memory {rec['peak_gb']:.2f} GB" if cuda else "")
+          + f"; pipeline {rec['pipeline']} [{card}]", flush=True)
+    ln_v = float(np.log(cfg.vocab_size))
+    if not all(np.isfinite(r["grad_norm"]) for r in rows):
+        raise AssertionError(f"a grad norm is not finite: {rows}")
+    last, first = rows[-1]["loss"], rows[0]["loss"]
+    if not (last < first and last < ln_v):
+        raise AssertionError(f"the loss did not fall: first {first}, last"
+                             f" {last}, ln V {ln_v}")
+    print(f"  loss {first:.4f} -> {last:.4f} (ln V = {ln_v:.4f})")
+    return rec
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| in float64 (0 when both are 0)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    nb = float(b.norm())
+    return float((a - b).norm()) / nb if nb else float((a - b).norm())
+
+
+def drop_wo_grad(grads) -> None:
+    """Planted fault: the first layer's ``attn/wo`` gradient dropped."""
+    leaf = grads["groups"][next(iter(sorted(grads["groups"])))]["attn"]["wo"]
+    leaf[0].zero_()
+
+
+def adamw_without_bias_correction(params, grads, state, cfg, lr_scale=1.0):
+    """Planted fault: AdamW with its bias corrections left out."""
+    lr = cfg.lr * lr_scale
+
+    def upd(p, g, m, v):
+        gf = g.to(torch.float32)
+        m2 = cfg.b1 * m + (1 - cfg.b1) * gf
+        v2 = cfg.b2 * v + (1 - cfg.b2) * gf * gf
+        step = m2 / (torch.sqrt(v2) + cfg.eps) + cfg.weight_decay * p
+        return (p - lr * step).to(p.dtype), m2, v2
+
+    out = [upd(*x) for x in zip(leaves(params), leaves(grads),
+                                leaves(state["m"]), leaves(state["v"]))]
+    return (unflatten(params, [o[0] for o in out]),
+            {"m": unflatten(params, [o[1] for o in out]),
+             "v": unflatten(params, [o[2] for o in out]),
+             "count": state["count"] + 1})
+
+
+def _run_steps(state, batches, cfg, hyper, fault=None):
+    """``len(batches)`` train steps; ``fault`` plants one. Returns (state,
+    [(loss, grad norm)])."""
+    grad_step = make_grad_step(cfg, hyper)
+    out = []
+    for b in batches:
+        loss, grads = grad_step(state["params"], b)
+        if fault == "wo gradient dropped":
+            drop_wo_grad(grads)
+        if fault == "no bias correction":
+            saved, steps_mod.adamw_update = (steps_mod.adamw_update,
+                                             adamw_without_bias_correction)
+            try:
+                state, met = apply_grads(state, loss, grads, hyper)
+            finally:
+                steps_mod.adamw_update = saved
+        else:
+            state, met = apply_grads(state, loss, grads, hyper)
+        out.append((float(met["loss"]), float(met["grad_norm"])))
+    return state, out
+
+
+def state_differences(start, got, want, got_m, want_m):
+    """Per kind, the largest over leaves: loss and grad norm |d| / |want|
+    per step; m and v ||d|| / ||want||; params the same of the change
+    from ``start``."""
+    d = {"loss": max(abs(a[0] - b[0]) for a, b in zip(got_m, want_m)),
+         "grad_norm": max(abs(a[1] - b[1]) / abs(b[1])
+                          for a, b in zip(got_m, want_m))}
+    s0 = dict(leaf_paths(start))
+    w = dict(leaf_paths(want))
+    for key, g in leaf_paths(got):
+        kind = ("params" if key.startswith(("params/", "opt/master/"))
+                else key.split("/")[1] if key.startswith("opt/") else key)
+        if kind in ("count", "step"):
+            if not torch.equal(g.cpu(), w[key].cpu()):
+                raise AssertionError(f"{key}: {g} against {w[key]}")
+            continue
+        base = s0[key].cpu() if kind == "params" else 0
+        e = _rel(g.cpu() - base, w[key].cpu() - base)
+        d[kind] = max(d.get(kind, 0.0), e)
+    return d
+
+
+def train_card_vs_cpu(card, device="cuda", cases=VS_CPU_CASES):
+    """(b) From the same masters and batches, ``VS_CPU_STEPS`` steps on
+    ``device`` and on the CPU: every difference within ``VS_CPU``; each
+    planted fault must exceed a limit.  Returns the figures."""
+    hyper = TrainHyper(**TRAIN_HYPER)
+    recs = {}
+    for name, layers, batch, seq in cases:
+        cfg = (smoke_config(TRAIN_ARCH) if layers is None else
+               dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers))
+        tokens = markov_corpus(cfg.vocab_size, VS_CPU_STEPS * batch
+                               * (seq + 1), seed=1)
+        flat = tokens.reshape(VS_CPU_STEPS, batch, seq + 1)
+        batches = [{"tokens": f[:, :-1], "labels": f[:, 1:]} for f in flat]
+        t0 = time.perf_counter()
+        start = init_train_state(0, cfg, hyper, device="cpu")
+        cpu, cpu_m = _run_steps(start, batches, cfg, hyper)
+        cpu_s = time.perf_counter() - t0
+        card_start = tree_map(lambda t: t.to(device), start)
+        t0 = time.perf_counter()
+        got, got_m = _run_steps(card_start, batches, cfg, hyper)
+        sync(device)
+        card_s = time.perf_counter() - t0
+        diff = state_differences(start, got, cpu, got_m, cpu_m)
+        print(f"  card vs CPU, {name} ({VS_CPU_STEPS} steps of {batch} x"
+              f" {seq}; CPU {cpu_s:.1f} s, card {card_s:.1f} s): "
+              + ", ".join(f"{k} {v:.3g} (limit {VS_CPU[k]})"
+                          for k, v in diff.items()) + f" [{card}]",
+              flush=True)
+        faults = {}
+        for fault in ("wo gradient dropped", "no bias correction"):
+            bad, bad_m = _run_steps(card_start, batches, cfg, hyper, fault)
+            fd = state_differences(start, bad, cpu, bad_m, cpu_m)
+            worst = max(fd, key=lambda k: fd[k] / VS_CPU[k])
+            faults[fault] = (worst, fd[worst])
+            print(f"    planted fault {fault}: "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in fd.items())
+                  + f"; {worst} at {fd[worst] / VS_CPU[worst]:.1f}x its"
+                  " limit", flush=True)
+            del bad
+        over = {k: v for k, v in diff.items() if v > VS_CPU[k]}
+        if over:
+            raise AssertionError(f"card and CPU differ: {over}")
+        for fault, (worst, v) in faults.items():
+            if v <= VS_CPU[worst]:
+                raise AssertionError(f"planted fault {fault} stays within"
+                                     " the limits")
+        recs[name] = {"diff": diff, "faults": faults, "cpu_s": cpu_s,
+                      "card_s": card_s}
+        del got, cpu, start, card_start
+        gc.collect()
+    return recs
+
+
+def train_crash_resume(card, device="cuda"):
+    """(c) The reference test's schedule through ``Trainer`` on the smoke
+    config: checkpoints every 4 steps on a ``VSS`` of ``device``, a
+    failure after step 6, a resume at 4, on to 12; the parameters must
+    equal an unbroken run's bit for bit.  Run under
+    ``torch.use_deterministic_algorithms(True)``."""
+    cfg = smoke_config(TRAIN_ARCH)
+    hyper = TrainHyper(num_microbatches=2, total_steps=40, warmup_steps=2)
+    det = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            vss = VSS(os.path.join(root, "data"),
+                      config=VSSConfig(device=device))
+            tokens = markov_corpus(cfg.vocab_size, 200_000, seed=2)
+            n = write_token_corpus(vss, "corpus", tokens)
+
+            def trainer(sub, fail=None):
+                pipe = TokenPipeline(vss, "corpus", n, batch=RESUME["batch"],
+                                     seq=RESUME["seq"])
+                ck = CheckpointManager(os.path.join(root, f"ckpt_{sub}"),
+                                       keep_last=2, derived_reprs=("bf16",),
+                                       device=device)
+                return Trainer(cfg, hyper, pipe, ck, device=device,
+                               tcfg=TrainerConfig(
+                                   checkpoint_every=RESUME["every"],
+                                   fail_at_step=fail, log_every=4))
+
+            ref = trainer("ref").init()
+            log = ref.train(RESUME["steps"])["log"]
+            t1 = trainer("ft", fail=RESUME["fail"]).init()
+            try:
+                t1.train(RESUME["steps"])
+                raise AssertionError("the injected failure did not fire")
+            except SimulatedFailure:
+                pass
+            t1.ckpt.wait()
+            t2 = trainer("ft")
+            if not t2.resume() or t2.step != RESUME["every"]:
+                raise AssertionError(f"resumed at {t2.step}")
+            t2.train(RESUME["steps"])
+            same = [torch.equal(a, b) for a, b in zip(
+                leaves(ref.state["params"]), leaves(t2.state["params"]))]
+            for t in (ref, t1, t2):
+                t.pipeline.close()
+                t.ckpt.close()
+            vss.close()
+    finally:
+        torch.use_deterministic_algorithms(det)
+    secs = time.perf_counter() - t0
+    print(f"  crash and resume ({cfg.name}, {RESUME['steps']} steps,"
+          f" failure after {RESUME['fail']}, resumed at {RESUME['every']}):"
+          f" {sum(same)} of {len(same)} parameter leaves equal bit for bit;"
+          f" losses {[round(r['loss'], 4) for r in log]}; {secs:.1f} s"
+          f" [{card}]", flush=True)
+    if not all(same):
+        raise AssertionError("the resumed run's parameters differ from the"
+                             " unbroken run's")
+    return secs
+
+
+def crash_resume_main() -> int:
+    """``chip_smoke.py --crash-resume``: (c) alone on the card, under
+    ``DETERMINISTIC_ENV``; it must launch no kernel either."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    missing = {k: v for k, v in DETERMINISTIC_ENV.items()
+               if os.environ.get(k) != v}
+    if missing:
+        print(f"chip_smoke {CRASH_RESUME_FLAG} needs {missing}",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train_crash_resume(card_line())
+    launches, plain = ops.launch_counts(), ops.plain_counts()
+    if launches or plain:
+        print(f"the crash-and-resume check ran kernels: {launches} {plain}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def crash_resume_in_process(card) -> float:
+    """(c) on the card in a child process under ``DETERMINISTIC_ENV``;
+    its output is printed here.  Returns its wall seconds."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), CRASH_RESUME_FLAG],
+        env=dict(os.environ, **DETERMINISTIC_ENV), capture_output=True,
+        text=True, timeout=600)
+    sys.stdout.write(res.stdout)
+    secs = time.perf_counter() - t0
+    print(f"  crash-and-resume process (with {DETERMINISTIC_ENV}):"
+          f" {secs:.1f} s, exit {res.returncode} [{card}]", flush=True)
+    if res.returncode:
+        raise AssertionError("the crash-and-resume check failed:\n"
+                             + res.stderr[-4000:])
+    return secs
+
+
+def training_phase(card, device="cuda", full_cfg=None, full_shape=None,
+                   vs_cpu_cases=VS_CPU_CASES):
+    """(a)-(d): full width, card against CPU, crash and resume; no
+    hand-written kernel and no plain version may run in the phase."""
+    print("training phase: (a) full width, (b) card against CPU, (c) crash"
+          " and resume", flush=True)
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    ops.reset_plain_counts()
+    batch, seq, steps = full_shape or (TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS)
+    full = train_full_width(card, device, full_cfg, batch, seq, steps)
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    vs = train_card_vs_cpu(card, device, vs_cpu_cases)
+    resume_s = (crash_resume_in_process(card)
+                if torch.device(device).type == "cuda"
+                else train_crash_resume(card, device))
+    launches, plain = ops.launch_counts(), ops.plain_counts()
+    print(f"  launches of the hand-written kernels in the phase: {launches};"
+          f" plain-version calls: {plain}")
+    if launches or plain:
+        raise AssertionError(f"the training phase ran kernels: {launches}"
+                             f" {plain}")
+    secs = time.perf_counter() - t0
+    print(f"  training phase: {secs:.1f} s wall [{card}]", flush=True)
+    return {"full": full, "vs_cpu": vs, "resume_s": resume_s, "secs": secs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2764,6 +3227,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     _recs, nondense_launches = nondense_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    training_phase(card)
 
     kernels = []
     paths = dict(gpu["launches"])
@@ -2795,4 +3262,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(crash_resume_main() if sys.argv[1:] == [CRASH_RESUME_FLAG]
+             else main())

@@ -1,0 +1,236 @@
+"""The three step programs: train_step, prefill_step, decode_step.
+
+Port of ``repro.launch.steps`` for one device.  ``train_step`` is the
+reference's full step: microbatched gradient accumulation in f32,
+optional int8 error-feedback gradient compression, global-norm clip,
+cosine LR with warmup, AdamW.  ``prefill_step``/``decode_step`` fill the
+decode cache / serve one token against it.
+
+The train state is the reference's pytree, key for key: {"params",
+"opt": {"m", "v", "count"[, "master"]}, "step"[, "ef"]}, parameters in
+the reference's layout (groups stacked on a leading axis), f32 masters,
+int32 ``count`` and ``step``, and with ``bf16_params`` every f32 leaf of
+the live ``params`` in bf16 (the f32 master in ``opt``).  So a checkpoint
+(``train.checkpoint.tree_to_frames`` of the state) has the reference's
+bytes, and either package restores the other's.
+
+The step runs the model with the live parameters through
+``models.model.loss_fn``: an f32 master is cast to bf16 where the
+reference casts it (``bind_reference``), so autograd gives f32
+gradients for the masters, exactly the reference's; a bf16 live leaf
+gets its bf16 gradient.  There is no mesh: the reference's sharding
+options are no-ops without one (``shard_grad_accum``), and its meshes
+and shardings are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import model as M
+from repro_torch.optim import (
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+    clip_by_global_norm,
+    compress_decompress_grads,
+    cosine_schedule,
+    init_error_feedback,
+)
+from repro_torch.tree import leaf_paths, leaves, tree_map, unflatten
+from repro_torch.utils import div_once
+
+F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHyper:
+    adamw: AdamWConfig = AdamWConfig()
+    total_steps: int = 10_000
+    warmup_steps: int = 100
+    num_microbatches: int = 1
+    compress_grads: bool = False  # int8 EF on the gradients
+    # the reference constrains the gradient-accumulation carry to the
+    # parameters' sharding; without a mesh it is a no-op, as here
+    shard_grad_accum: bool = False
+    # live params in bf16, the f32 master inside the optimizer state
+    # (AdamW still updates the f32 master)
+    bf16_params: bool = False
+
+
+def _bf16_live(tree):
+    """Every f32 leaf rounded to bf16 (the reference's live params)."""
+    return tree_map(lambda p: p.to(M.COMPUTE_DTYPE) if p.dtype == F32
+                    else p, tree)
+
+
+def init_train_state(seed: Union[int, torch.Generator], cfg: ArchConfig,
+                     hyper: TrainHyper, *, device="cuda") -> Dict:
+    """The state of step 0: f32 masters drawn by ``models.model.
+    init_model`` from ``seed`` (an int seeds a generator on ``device``),
+    zero AdamW moments, step 0.  On ``"meta"`` only the shapes and
+    dtypes are made (the reference's ``abstract_train_state``)."""
+    dev = M.resolve_device(device)
+    gen = seed
+    if isinstance(seed, int) and dev.type != "meta":
+        gen = torch.Generator(dev).manual_seed(seed)
+    model = M.init_model(cfg, device=dev, generator=None if dev.type ==
+                         "meta" else gen, dtype=F32)
+    params = M.reference_params(model)
+    del model
+    state = {"params": params, "opt": adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if hyper.bf16_params:
+        state["opt"]["master"] = params
+        state["params"] = _bf16_live(params)
+    if hyper.compress_grads:
+        state["ef"] = init_error_feedback(params)
+    return state
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A numpy leaf as a tensor; a bf16 leaf (numpy's extension dtype
+    named ``bfloat16``) through its bits."""
+    a = np.array(a, order="C")  # a copy; 0-d stays 0-d
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def from_reference_state(state_np: Mapping[str, Any], cfg: ArchConfig,
+                         hyper: TrainHyper, device="cuda") -> Dict:
+    """The port's train state holding the reference's: ``state_np`` is
+    the reference's ``init_train_state`` output (or a later state) as
+    numpy arrays.  Keys, shapes and dtypes must be those of the port's
+    state for ``cfg`` and ``hyper``."""
+    dev = M.resolve_device(device)
+    like = init_train_state(0, cfg, hyper, device="meta")
+    got = dict(leaf_paths(state_np))
+    want = dict(leaf_paths(like))
+    if set(got) != set(want):
+        raise ValueError(f"reference state has leaves {sorted(got)}, the"
+                         f" port expects {sorted(want)}")
+    out = []
+    for path, t in leaf_paths(like):
+        x = _from_numpy(np.asarray(got[path]))
+        if tuple(x.shape) != tuple(t.shape) or x.dtype != t.dtype:
+            raise ValueError(f"{path}: reference {x.dtype}"
+                             f" {tuple(x.shape)}, port {t.dtype}"
+                             f" {tuple(t.shape)}")
+        out.append(x.to(dev))
+    return unflatten(like, out)
+
+
+def _split_microbatches(batch: Dict, n: int) -> Dict:
+    def r(x):
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} not divisible by microbatches {n}")
+        return x.reshape(n, b // n, *x.shape[1:])
+
+    return {k: r(v) for k, v in batch.items()}
+
+
+def make_grad_step(cfg: ArchConfig, hyper: TrainHyper):
+    """Returns grad_step(params, batch) -> (loss, grads): the train step's
+    first half.  The batch holds tokens and labels (B, S) [+ frames |
+    patches], tensors or numpy, moved to the parameters' device.  With
+    microbatches the gradients are summed in f32 from zeros and divided
+    by their count, as is the loss; else each has its leaf's dtype."""
+    skeleton = M.init_model(cfg, device="meta")
+
+    def loss_and_grads(params, mb):
+        live = [p.detach().requires_grad_() for p in leaves(params)]
+        loss = M.loss_fn(unflatten(params, live), cfg, mb, skeleton=skeleton)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(live, grads)]
+        return loss.detach(), unflatten(params, grads)
+
+    def grad_step(params, batch):
+        dev = leaves(params)[0].device
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        n = hyper.num_microbatches
+        if n == 1:
+            return loss_and_grads(params, batch)
+        micro = _split_microbatches(batch, n)
+        loss_sum = torch.zeros((), dtype=F32, device=dev)
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
+                                               device=dev), params)
+        for i in range(n):
+            loss, g = loss_and_grads(params,
+                                     {k: v[i] for k, v in micro.items()})
+            for acc, gi in zip(leaves(grads), leaves(g)):
+                acc.add_(gi)  # f32 + f32(g), one rounding
+            del g
+            loss_sum = loss_sum + loss
+        return div_once(loss_sum, n), tree_map(lambda g: div_once(g, n),
+                                               grads)
+
+    return grad_step
+
+
+def apply_grads(state: Dict, loss: torch.Tensor, grads,
+                hyper: TrainHyper) -> Tuple[Dict, Dict]:
+    """The train step's second half: int8 EF compression if
+    ``compress_grads``, clip by global norm, the cosine LR, AdamW (on the
+    f32 master under ``bf16_params``, the live params rounded from it).
+    Returns (a new state, metrics: loss, grad_norm, lr_scale as device
+    scalars)."""
+    new_state = dict(state)
+    if hyper.compress_grads:
+        grads, new_state["ef"] = compress_decompress_grads(grads, state["ef"])
+    grads, gnorm = clip_by_global_norm(grads, hyper.adamw.clip_norm)
+    lr_scale = cosine_schedule(state["step"], hyper.total_steps,
+                               hyper.warmup_steps)
+    if hyper.bf16_params:
+        opt = dict(state["opt"])
+        master = opt.pop("master")
+        new_master, new_opt = adamw_update(master, grads, opt, hyper.adamw,
+                                           lr_scale)
+        new_opt["master"] = new_master
+        new_params = _bf16_live(new_master)
+    else:
+        new_params, new_opt = adamw_update(state["params"], grads,
+                                           state["opt"], hyper.adamw,
+                                           lr_scale)
+    new_state["params"] = new_params
+    new_state["opt"] = new_opt
+    new_state["step"] = state["step"] + 1
+    metrics = {"loss": loss, "grad_norm": gnorm, "lr_scale": lr_scale}
+    return new_state, metrics
+
+
+def make_train_step(cfg: ArchConfig, hyper: TrainHyper):
+    """Returns train_step(state, batch) -> (state, metrics): ``grad_step``
+    then ``apply_grads``.  The state is not changed in place."""
+    grad_step = make_grad_step(cfg, hyper)
+
+    def train_step(state, batch):
+        loss, grads = grad_step(state["params"], batch)
+        return apply_grads(state, loss, grads, hyper)
+
+    return train_step
+
+
+def make_prefill_step(cfg: ArchConfig):
+    """prefill_step(model, batch, cache) -> (last logits, cache)."""
+
+    def prefill_step(model, batch, cache):
+        extra = {k: batch[k] for k in M.FRONTEND_INPUTS if k in batch}
+        return M.prefill(model, batch["tokens"], cache, **extra)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    """decode_step(model, cache, tokens) -> (logits, cache)."""
+
+    def decode_step(model, cache, tokens):
+        return M.decode_step(model, cache, tokens)
+
+    return decode_step

@@ -45,15 +45,18 @@ def dense_init(shape, in_axis_size=None, *, generator, device,
     return (x * (1.0 / np.sqrt(fan_in))).to(dtype)
 
 
-def weight(shape, fan_in, *, generator, device) -> torch.nn.Parameter:
-    """A bf16 projection drawn by ``dense_init`` (inference: no grad)."""
+def weight(shape, fan_in, *, generator, device,
+           dtype=COMPUTE_DTYPE) -> torch.nn.Parameter:
+    """A projection drawn by ``dense_init``: bf16 for use, f32 for a
+    trainer's masters (no grad until a trainer asks for it)."""
     return torch.nn.Parameter(dense_init(
-        shape, fan_in, generator=generator, device=device),
+        shape, fan_in, generator=generator, device=device, dtype=dtype),
         requires_grad=False)
 
 
 def zeros_f32(n: int, device) -> torch.nn.Parameter:
-    """An f32 norm scale or bias, zero at init (inference: no grad)."""
+    """An f32 norm scale or bias, zero at init (no grad until a trainer
+    asks for it)."""
     return torch.nn.Parameter(
         torch.zeros(n, dtype=torch.float32, device=device),
         requires_grad=False)
@@ -190,11 +193,12 @@ class Attention(torch.nn.Module):
     """wq (D,H,hd), wk/wv (D,Hkv,hd), wo (H,hd,D) in bf16; q_norm/k_norm
     (hd,) f32 with qk-norm."""
 
-    def __init__(self, cfg: AttnCfg, *, generator, device):
+    def __init__(self, cfg: AttnCfg, *, generator, device,
+                 dtype=COMPUTE_DTYPE):
         super().__init__()
         d, h, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim)
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.wq = weight((d, h, hd), d, **kw)
         self.wk = weight((d, hkv, hd), d, **kw)
         self.wv = weight((d, hkv, hd), d, **kw)
@@ -264,9 +268,9 @@ class MLP(torch.nn.Module):
     """wi (D,F), wd (F,D) and, gated, wg (D,F), in bf16."""
 
     def __init__(self, d: int, f: int, gated: bool = True, *, generator,
-                 device):
+                 device, dtype=COMPUTE_DTYPE):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.wi = weight((d, f), d, **kw)
         self.wd = weight((f, d), f, **kw)
         if gated:
@@ -301,10 +305,11 @@ class MoE(torch.nn.Module):
     """router (D,E), we_in/we_gate (E,D,F), we_out (E,F,D) in bf16 and,
     with shared experts, a gated ``shared`` MLP of width num_shared*F."""
 
-    def __init__(self, d: int, cfg: MoECfg, *, generator, device):
+    def __init__(self, d: int, cfg: MoECfg, *, generator, device,
+                 dtype=COMPUTE_DTYPE):
         super().__init__()
         e, f = cfg.num_experts, cfg.d_expert
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.router = weight((d, e), d, **kw)
         self.we_in = weight((e, d, f), d, **kw)
         self.we_gate = weight((e, d, f), d, **kw)

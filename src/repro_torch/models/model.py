@@ -23,12 +23,18 @@ points, as in the reference:
   ``prefill``      parallel pass that also fills the decode cache
   ``decode_step``  one token against the cache (dense KV, ring, states)
 
+``forward`` and ``prefill`` run without autograd; ``parallel`` is the
+same parallel pass with it, and ``loss_fn`` the training loss over it.
+
 The audio and vision families take their frontend inputs (``frames``,
 ``patches``) by keyword.  Weights live in bf16; norm scales, the
 cross-attention gates, ``rg_a`` and the sLSTM's recurrent weights in f32,
-the numbers of the reference's f32 masters as it uses them.
+the numbers of the reference's f32 masters as it uses them (a trainer's
+f32 masters are drawn with ``init_model(..., dtype=torch.float32)``).
 ``from_reference_params`` carries the reference's parameter dict across;
-``reference_shapes`` gives the reference's key layout of a port model.
+``reference_shapes`` gives the reference's key layout of a port model,
+``reference_params`` its parameters in that layout, and
+``bind_reference`` runs a model with the values of such a tree.
 The decode cache is updated in place (the reference returns a new one):
 a dense cache at full width is large.
 """
@@ -43,6 +49,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
+from repro_torch.tree import leaf_paths, tree_map
+from repro_torch.utils import div_once
 
 COMPUTE_DTYPE = torch.bfloat16
 MAX_DECODER_POS = 32_768  # learned-pos archs (whisper) decode up to here
@@ -115,13 +123,15 @@ def _slstm_cfg(cfg: ArchConfig) -> R.SLstmCfg:
 # modules and init
 # ---------------------------------------------------------------------------
 
-def _normal(shape, std, *, generator, device) -> torch.nn.Parameter:
-    """N(0, std²) drawn in f32 and rounded to bf16 (shape only on meta)."""
+def _normal(shape, std, *, generator, device,
+            dtype=COMPUTE_DTYPE) -> torch.nn.Parameter:
+    """N(0, std²) drawn in f32 and rounded to ``dtype`` (shape only on
+    meta)."""
     if torch.device(device).type == "meta":
-        t = torch.empty(shape, dtype=COMPUTE_DTYPE, device=device)
+        t = torch.empty(shape, dtype=dtype, device=device)
     else:
         t = torch.empty(shape, dtype=torch.float32, device=device)
-        t = (t.normal_(generator=generator) * std).to(COMPUTE_DTYPE)
+        t = (t.normal_(generator=generator) * std).to(dtype)
     return torch.nn.Parameter(t, requires_grad=False)
 
 
@@ -137,11 +147,12 @@ class Layer(torch.nn.Module):
     ``moe``, ``rec``, ``lstm``, ``lnx``, ``xattn``, ``xgate``,
     ``mgate``)."""
 
-    def __init__(self, typ: str, cfg: ArchConfig, *, generator, device):
+    def __init__(self, typ: str, cfg: ArchConfig, *, generator, device,
+                 dtype=COMPUTE_DTYPE):
         super().__init__()
         self.typ = typ
         d, nt = cfg.d_model, cfg.norm_type
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.ln1 = L.Norm(d, nt, device=device)
         if typ in SELF_ATTN_TYPES:
             self.attn = L.Attention(_attn_cfg(cfg), **kw)
@@ -174,13 +185,14 @@ class Encoder(torch.nn.Module):
     """The whisper encoder: ``enc`` layers over the projected frames, its
     own learned ``pos_embed`` (T_frames, D) and final ``norm``."""
 
-    def __init__(self, cfg: ArchConfig, *, generator, device):
+    def __init__(self, cfg: ArchConfig, *, generator, device,
+                 dtype=COMPUTE_DTYPE):
         super().__init__()
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.layers = torch.nn.ModuleList(
-            Layer("enc", cfg, generator=generator, device=device)
-            for _ in range(cfg.encoder_layers))
+            Layer("enc", cfg, **kw) for _ in range(cfg.encoder_layers))
         self.pos_embed = _normal((cfg.num_frontend_tokens, cfg.d_model),
-                                 0.02, generator=generator, device=device)
+                                 0.02, **kw)
         self.norm = L.Norm(cfg.d_model, cfg.norm_type, device=device)
 
 
@@ -188,13 +200,18 @@ class CausalLM(torch.nn.Module):
     """embed (V, D) bf16; for the audio family a learned ``pos_embed``
     (MAX_DECODER_POS, D) and an ``encoder``; for a frontend
     ``frontend_proj`` (frontend_dim, D); one ``Layer`` per layer; final
-    norm and, unless tied, lm_head (D, V) bf16."""
+    norm and, unless tied, lm_head (D, V) bf16.  With ``dtype`` f32 the
+    bf16 tensors are f32 instead: a trainer's unrounded masters.
 
-    def __init__(self, cfg: ArchConfig, *, generator, device):
+    Calling the module runs the parallel pass with autograd on (a
+    trainer's); ``forward`` below runs it without."""
+
+    def __init__(self, cfg: ArchConfig, *, generator, device,
+                 dtype=COMPUTE_DTYPE):
         super().__init__()
         self.cfg = cfg
         self.plan = layer_plan(cfg)
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.embed = _normal((cfg.vocab_size, cfg.d_model), 0.02, **kw)
         self.pos_embed: Optional[torch.nn.Parameter] = None
         if not cfg.use_rope and cfg.family == "audio":
@@ -220,10 +237,12 @@ class CausalLM(torch.nn.Module):
         return self.embed.device
 
     def forward(self, tokens: torch.Tensor, *, frames=None, patches=None):
-        return forward(self, tokens, frames=frames, patches=patches)
+        return parallel(self, tokens, frames=frames, patches=patches)
 
 
-def _device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; "cuda" without a card raises (no
+    entry point falls back to the CPU)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -233,17 +252,21 @@ def _device(device) -> torch.device:
 
 
 def init_model(cfg: ArchConfig, *, device="cuda",
-               generator: Optional[torch.Generator] = None) -> CausalLM:
+               generator: Optional[torch.Generator] = None,
+               dtype=COMPUTE_DTYPE) -> CausalLM:
     """Random weights drawn on ``device`` from ``generator`` (a fresh one
     seeded 0 when None), in the reference's distribution: embed and the
     learned positions N(0, 0.02²), projections N(0, 1/fan_in), norm
     scales, gates, conv biases and sLSTM recurrent weights 0, ``rg_a``
-    log(expm1(U(0.3, 0.8))).  On ``"meta"`` only the shapes are made."""
-    dev = _device(device)
+    log(expm1(U(0.3, 0.8))).  Each draw is made in f32 and rounded to
+    ``dtype`` (bf16: the weights as the reference uses them; f32: its
+    masters, from which the bf16 model rounds).  On ``"meta"`` only the
+    shapes are made."""
+    dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(dev).manual_seed(0)
     with torch.no_grad():
-        return CausalLM(cfg, generator=generator, device=dev)
+        return CausalLM(cfg, generator=generator, device=dev, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -263,12 +286,6 @@ def _layer_key(plan: LayerPlan, li: int) -> Tuple[str, Optional[int]]:
     return f"tail_{i}_{plan.tail[i]}", None
 
 
-def _tree_map(fn, *trees):
-    if isinstance(trees[0], Mapping):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
 def _module_tree(m: torch.nn.Module) -> Dict[str, Any]:
     """A module's parameters and submodules as the reference's nested
     dict (the attribute names are the reference's keys)."""
@@ -281,7 +298,7 @@ def _module_tree(m: torch.nn.Module) -> Dict[str, Any]:
 def _stacked(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Layer trees of one group key → one tree with lists for leaves (the
     reference's stacked leading axis)."""
-    return _tree_map(lambda *ts: list(ts), *trees)
+    return tree_map(lambda *ts: list(ts), *trees)
 
 
 def _reference_tree(model: CausalLM) -> Dict[str, Any]:
@@ -324,7 +341,55 @@ def _shape(leaf) -> Tuple[int, ...]:
 def reference_shapes(model: CausalLM) -> Dict[str, Any]:
     """The reference's parameter layout of ``model``: the same nested
     keys, with each leaf's shape (groups stacked on a leading axis)."""
-    return _tree_map(_shape, _reference_tree(model))
+    return tree_map(_shape, _reference_tree(model))
+
+
+def reference_params(model: CausalLM) -> Dict[str, Any]:
+    """The reference's parameter tree of ``model`` as new tensors of the
+    parameters' dtypes (groups stacked on a leading axis)."""
+    return tree_map(lambda leaf: torch.stack([t.detach() for t in leaf])
+                    if isinstance(leaf, list) else leaf.detach().clone(),
+                    _reference_tree(model))
+
+
+def _reference_names(model: CausalLM) -> Dict[str, Any]:
+    """The reference's parameter tree with the names of ``model``'s
+    parameters for leaves (a list of them where the reference stacks)."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return tree_map(lambda leaf: [names[id(t)] for t in leaf]
+                    if isinstance(leaf, list) else names[id(leaf)],
+                    _reference_tree(model))
+
+
+def bind_reference(model: CausalLM, params: Mapping[str, Any]
+                   ) -> Dict[str, torch.Tensor]:
+    """{name of a parameter of ``model``: its value} from ``params``, a
+    tree of tensors in the reference's layout, for
+    ``torch.func.functional_call``.  A stacked leaf is split along its
+    group axis by one ``unbind`` (whose gradient is one stack); an f32
+    leaf is cast to the parameter's dtype, as the reference casts its
+    masters at use (bf16 weights, f32 norm scales and gates); a bf16 leaf
+    (a trainer's bf16 live parameters) is used as it is.  Autograd
+    reaches the leaves of ``params`` through the casts."""
+    names = _reference_names(model)
+    _same_keys(params, names)
+    dtypes = {n: p.dtype for n, p in model.named_parameters()}
+
+    def cast(name, value):
+        return value.to(dtypes[name]) if value.dtype == torch.float32 \
+            else value
+
+    out: Dict[str, torch.Tensor] = {}
+    for (path, name), (_p, value) in zip(leaf_paths(names),
+                                          leaf_paths(params)):
+        if isinstance(name, list):
+            if value.shape[0] != len(name):
+                raise ValueError(f"{path}: {value.shape[0]} stacked layers,"
+                                 f" the model has {len(name)}")
+            out.update((n, cast(n, v)) for n, v in zip(name, value.unbind(0)))
+        else:
+            out[name] = cast(name, value)
+    return out
 
 
 def _same_keys(ref, port, path=()) -> None:
@@ -346,7 +411,7 @@ def from_reference_params(params_np: Mapping[str, Any], cfg: ArchConfig,
     along their leading axis.  Each value is rounded to its parameter's
     dtype: bf16 as the reference casts at use, f32 where it uses the
     master uncast."""
-    dev = _device(device)
+    dev = resolve_device(device)
     model = init_model(cfg, device="meta").to_empty(device=dev)
     tree = _reference_tree(model)
     _same_keys(params_np, tree)
@@ -528,18 +593,67 @@ def _start(model: CausalLM, tokens, frames, patches):
     return x, positions, _memory_for(model, frames, patches)
 
 
-@torch.no_grad()
-def forward(model: CausalLM, tokens: torch.Tensor, *, frames=None,
-            patches=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Parallel pass.  tokens (B, S) [+ frames (B, T, frontend_dim) for
-    audio | patches (B, T, frontend_dim) for vision].  Returns (logits
-    (B, S, V) bf16, the MoE aux summed over layers, an f32 scalar)."""
+def parallel(model: CausalLM, tokens: torch.Tensor, *, frames=None,
+             patches=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Parallel pass with autograd on (a trainer's).  tokens (B, S) [+
+    frames (B, T, frontend_dim) for audio | patches (B, T, frontend_dim)
+    for vision].  Returns (logits (B, S, V) bf16, the MoE aux summed over
+    layers, an f32 scalar)."""
     x, positions, memory = _start(model, tokens, frames, patches)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
         x, a = _layer(layer, x, model.cfg, positions, memory)
         aux = aux + a
     return unembed(model, x), aux
+
+
+@torch.no_grad()
+def forward(model: CausalLM, tokens: torch.Tensor, *, frames=None,
+            patches=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``parallel`` without autograd (serving and evaluation)."""
+    return parallel(model, tokens, frames=frames, patches=patches)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+MOE_AUX_WEIGHT = 0.01
+FRONTEND_INPUTS = ("frames", "patches")
+
+
+def loss_fn(model_or_params, cfg: ArchConfig, batch: Mapping[str, Any], *,
+            skeleton: Optional[CausalLM] = None) -> torch.Tensor:
+    """Causal-LM cross entropy (labels < 0 are masked) + MoE aux, with
+    autograd on: ``MOE_AUX_WEIGHT · aux / n_moe`` over the layers of type
+    ``moe``; the logsumexp in f32.  ``batch`` holds tensors: tokens and
+    labels (B, S) [+ frames | patches].
+
+    ``model_or_params`` is a ``CausalLM`` (its parameters get the
+    gradients) or the reference's parameter tree of tensors (its leaves
+    get them, through ``bind_reference``'s casts), which is then run in
+    ``skeleton``, a ``CausalLM`` of ``cfg`` whose own values are unused
+    (made on the meta device when None)."""
+    extra = {k: batch[k] for k in FRONTEND_INPUTS if k in batch}
+    if isinstance(model_or_params, CausalLM):
+        logits, aux = model_or_params(batch["tokens"], **extra)
+    else:
+        model = skeleton or init_model(cfg, device="meta")
+        logits, aux = torch.func.functional_call(
+            model, bind_reference(model, model_or_params),
+            (batch["tokens"],), extra)
+    labels = torch.as_tensor(batch["labels"]).to(device=logits.device,
+                                                 dtype=torch.long)
+    mask = (labels >= 0).to(torch.float32)
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    n_moe = sum(1 for t in cfg.layer_types() if t == "moe")
+    if n_moe:
+        loss = loss + div_once(MOE_AUX_WEIGHT * aux, n_moe)
+    return loss
 
 
 # ---------------------------------------------------------------------------

@@ -82,9 +82,9 @@ class RGLRU(torch.nn.Module):
     lies in about (0.9, 0.999)."""
 
     def __init__(self, d_model: int, width: int, conv_width: int = 4, *,
-                 generator, device):
+                 generator, device, dtype=COMPUTE_DTYPE):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.rg_in = weight((d_model, width), d_model, **kw)
         self.rg_gate = weight((d_model, width), d_model, **kw)
         self.rg_out = weight((width, d_model), width, **kw)
@@ -97,7 +97,7 @@ class RGLRU(torch.nn.Module):
         self.rg_a = torch.nn.Parameter(rg_a, requires_grad=False)
         self.conv_w = weight((conv_width, width), conv_width, **kw)
         self.conv_b = torch.nn.Parameter(torch.zeros(
-            (width,), dtype=COMPUTE_DTYPE, device=device), requires_grad=False)
+            (width,), dtype=dtype, device=device), requires_grad=False)
 
 
 def _rg_gates(p: RGLRU, u):
@@ -207,10 +207,11 @@ class MLstm(torch.nn.Module):
     """lstm_up (D,2U), lstm_q/k/v (U,U), lstm_i/f (U,H), lstm_down (U,D),
     conv_w (cw,U) and conv_b (U,), all bf16."""
 
-    def __init__(self, cfg: MLstmCfg, *, generator, device):
+    def __init__(self, cfg: MLstmCfg, *, generator, device,
+                 dtype=COMPUTE_DTYPE):
         super().__init__()
         d, ud, h = cfg.d_model, cfg.inner, cfg.num_heads
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.lstm_up = weight((d, 2 * ud), d, **kw)
         self.lstm_q = weight((ud, ud), ud, **kw)
         self.lstm_k = weight((ud, ud), ud, **kw)
@@ -220,7 +221,7 @@ class MLstm(torch.nn.Module):
         self.lstm_down = weight((ud, d), ud, **kw)
         self.conv_w = weight((cfg.conv_width, ud), cfg.conv_width, **kw)
         self.conv_b = torch.nn.Parameter(torch.zeros(
-            (ud,), dtype=COMPUTE_DTYPE, device=device), requires_grad=False)
+            (ud,), dtype=dtype, device=device), requires_grad=False)
 
 
 def _mlstm_parallel_core(q, k, v, i_raw, f_raw, chunk=256):
@@ -364,10 +365,11 @@ class SLstm(torch.nn.Module):
     """lstm_z/i/f/o (D,U) and lstm_down (U,D) in bf16; the diagonal
     recurrent weights r_z/i/f/o (U,) in f32, zero at init."""
 
-    def __init__(self, cfg: SLstmCfg, *, generator, device):
+    def __init__(self, cfg: SLstmCfg, *, generator, device,
+                 dtype=COMPUTE_DTYPE):
         super().__init__()
         d, ud = cfg.d_model, cfg.inner
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.lstm_z = weight((d, ud), d, **kw)
         self.lstm_i = weight((d, ud), d, **kw)
         self.lstm_f = weight((d, ud), d, **kw)

@@ -1,10 +1,11 @@
 """The port stands alone: ``src/repro_torch`` and the chip scripts import
-neither ``jax`` nor the JAX package ``repro`` (``repro_torch`` is not
-``repro``), the package works with both blocked (stores written and
-read, one on ``tiered:remote``; a smoke LM served, and a recurrent and
-an encoder-decoder smoke LM prefilled and stepped; the video service
-answering one read), and without a card the default device raises
-instead of running on the CPU."""
+neither ``jax`` (nor ``jaxlib`` or ``ml_dtypes``) nor the JAX package
+``repro`` (``repro_torch`` is not ``repro``), the package works with
+them blocked (stores written and read, one on ``tiered:remote``; a smoke
+LM served, and a recurrent and an encoder-decoder smoke LM prefilled and
+stepped; the video service answering one read; two train steps of a
+smoke LM and a checkpoint of its state saved and restored), and without
+a card the default device raises instead of running on the CPU."""
 import ast
 import os
 import pathlib
@@ -17,8 +18,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "chip_breakdown.py",
-    REPO / "chip_mse_variants.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+    REPO / "chip_mse_variants.py", REPO / "chip_cublas_ab.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_modules(path):
@@ -54,6 +55,7 @@ def test_package_works_with_jax_and_reference_blocked(tmp_path):
         import sys
         sys.modules["jax"] = None
         sys.modules["repro"] = None
+        sys.modules["ml_dtypes"] = None
         sys.path.insert(0, {str(REPO / "src")!r})
         import importlib, pkgutil
         import numpy as np
@@ -125,8 +127,35 @@ def test_package_works_with_jax_and_reference_blocked(tmp_path):
                               vss.read("v", cache=False).frames)
         svc.close()
         vss.close()
-        assert not any(k == "jax" or k.startswith("jax.") or k == "repro"
-                       or k.startswith("repro.")
+        # two train steps of a smoke LM, and a checkpoint of its state
+        from repro_torch.launch.steps import (
+            TrainHyper, init_train_state, make_train_step)
+        from repro_torch.train.checkpoint import CheckpointManager
+        from repro_torch.tree import leaves
+        cfg = smoke_config("phi3-mini-3.8b")
+        hyper = TrainHyper(num_microbatches=2, warmup_steps=1,
+                           total_steps=4, bf16_params=True)
+        state = init_train_state(0, cfg, hyper, device="cpu")
+        step = make_train_step(cfg, hyper)
+        rng = np.random.default_rng(0)
+        batch = {{k: rng.integers(0, 512, (2, 8)).astype(np.int32)
+                 for k in ("tokens", "labels")}}
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        assert int(state["step"]) == 2 and np.isfinite(float(
+            metrics["loss"]))
+        ck = CheckpointManager({str(tmp_path / "ck")!r}, device="cpu",
+                               derived_reprs=("bf16",))
+        ck.save(2, state)
+        back, at = ck.restore(like=init_train_state(0, cfg, hyper,
+                                                    device="meta"))
+        assert at == 2
+        for a, b in zip(leaves(state), leaves(back)):
+            b = b if isinstance(b, torch.Tensor) else torch.from_numpy(b)
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        ck.close()
+        assert not any(k.split(".")[0] in ("jax", "jaxlib", "repro",
+                                           "ml_dtypes")
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
     """)
@@ -159,3 +188,24 @@ def test_chip_smoke_fails_without_cuda_and_prints_no_result():
                          env=dict(os.environ, JAX_PLATFORMS="cpu"))
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_training_entry_points_raise_without_cuda(tmp_path):
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.steps import TrainHyper, init_train_state
+    from repro_torch.train import CheckpointManager, Trainer
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    cfg, hyper = smoke_config("phi3-mini-3.8b"), TrainHyper()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(0, cfg, hyper)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CheckpointManager(str(tmp_path / "ck"))  # its default store
+    ck = CheckpointManager(str(tmp_path / "ck_cpu"), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, hyper, pipeline=None, ckpt=ck)
+    Trainer(cfg, hyper, pipeline=None, ckpt=ck, device="cpu")
+    ck.close()
