@@ -164,7 +164,30 @@ and PyTorch built for CUDA.  In order it:
    ``CUBLAS_WORKSPACE_CONFIG`` set): the parameters equal an unbroken
    run's bit for bit; (d) the phase runs none of the
    hand-written kernels and none of their plain versions;
-12. prints one JSON line of per-kernel numbers, the card line, and the
+12. runs the launch phase (meshes, shardings, the sharded train step):
+   (a) the dry run on the host, in a process of its own
+   (``chip_smoke.py --dryrun``: torch's fake process group at 256 and
+   512 ranks, tensors on the meta device) for qwen3-32b × train_4k and ×
+   decode_32k on the (16, 16) mesh and deepseek-moe-16b × train_4k on
+   (2, 16, 16): it prints each record's trace time, GiB per device, the
+   three roofline terms (analytic, H100 SXM peaks), the dominant one and
+   the roofline fraction, and holds the useful-FLOPs fraction in (0, 1],
+   every wire-byte count above 0, the parameter counts equal to those
+   from the published widths by hand and the resident bytes within 1 %
+   above a figure by hand (``hand_resident``); (b) in a process of its own on
+   the card (``chip_smoke.py --mesh-steps``, under
+   ``torch.use_deterministic_algorithms(True)``), phi3-mini-3.8b at its
+   published widths cut to 2 layers, 2 steps of the sharded train step
+   (``shard_grad_accum``) on a (1, 1) mesh of a one-rank NCCL group,
+   with and without ``bf16_weights``: every state leaf and metric equal
+   to the plain step's bit for bit, and a planted fault (one
+   microbatch's gradient left out) must break that; it prints both step
+   times; (c) there, ``Trainer.resume(mesh=)`` on the (1, 1) mesh of a
+   checkpoint the unsharded trainer wrote on a card store continues bit
+   for bit with the unsharded resume; each child prints its kernel
+   counts, and no hand-written kernel and no plain version may run in
+   the phase;
+13. prints one JSON line of per-kernel numbers, the card line, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises, and the script exits non-zero without the
@@ -257,10 +280,14 @@ from repro_torch.tree import (  # noqa: E402
     unflatten,
 )
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, and the f32 rate outside the
-# tensor cores (the kernels do scalar f32 work).
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+# NVIDIA H100 SXM data sheet (launch/roofline.py): HBM3 rate, the f32
+# rate outside the tensor cores (the kernels do scalar f32 work) and the
+# dense bf16 tensor-core rate
+from repro_torch.launch.roofline import (  # noqa: E402
+    BF16_FLOPS,
+    F32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+)
 
 GOP_1080P = (30, 3, 1080, 1920)  # (T, C, H, W): one GOP of the main path
 RAGGED = (7, 3, 17, 130)
@@ -2324,11 +2351,11 @@ class RouterSpy:
     def __exit__(self, *exc):
         L.moe_block = self.real
 
-    def __call__(self, p, x, cfg, act):
+    def __call__(self, p, x, cfg, act, ctx=L.NO_MESH):
         logits = (x.reshape(-1, x.shape[-1]) @ p.router.to(x.dtype)).float()
         ids = L.top_k_lower_first(torch.softmax(logits, -1), cfg.top_k)[1]
         self.calls.append((logits, ids.sort(-1).values))
-        return self.real(p, x, cfg, act)
+        return self.real(p, x, cfg, act, ctx)
 
 
 def router_flips(calls, n_moe, b, s, new):
@@ -2639,9 +2666,6 @@ TRAIN_HYPER = dict(num_microbatches=2, warmup_steps=2, total_steps=8)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 8
 MARKOV_SUCCESSORS = 4  # each token's successors, drawn Zipf(ZIPF_S)
 ZIPF_S = 1.1
-# H100 SXM data sheet: dense bf16 tensor-core rate (the f32 rate, HBM
-# rate above)
-BF16_FLOPS = 989e12
 ADAMW_BYTES_PER_PARAM = 28  # f32 p, m, v read and written, f32 grad read
 # card against CPU, 3 steps from the same masters and batches: the limits.
 # Measured on an NVIDIA H100 80GB HBM3 at 700 W (the larger of the two
@@ -3047,6 +3071,359 @@ def training_phase(card, device="cuda", full_cfg=None, full_shape=None,
     return {"full": full, "vs_cpu": vs, "resume_s": resume_s, "secs": secs}
 
 
+# -- the launch phase: meshes, shardings, the sharded train step ------------
+
+DRYRUN_FLAG = "--dryrun"
+MESH_STEPS_FLAG = "--mesh-steps"
+# (arch, shape, multi-pod): the dry run's cells on the host
+DRYRUN_CELLS = (("qwen3_32b", "train_4k", False),
+                ("qwen3_32b", "decode_32k", False),
+                ("deepseek_moe_16b", "train_4k", True))
+MESH_LAYERS = 2  # of phi3-mini's 32: the sharded step's depth cut
+MESH_STEPS = 2
+MESH_BATCH, MESH_SEQ = 4, 512
+
+
+COUNTS_TAG = "kernel counts "
+# every weight matrix is laid out over "data" x "model" (16 x 16) on both
+# production meshes; the batch and the cache over ("pod", "data") x "model"
+PARAM_WAYS = 16 * 16
+
+
+def hand_params(cfg):
+    """(total, active) parameters from the published widths: embedding
+    and untied head, per layer q/k/v/o, gated MLP (the MoE's first layer
+    dense, the others a router, the shared experts and the routed
+    experts, of which top_k of num_experts are active), two norms (and
+    q/k norms), the final norm."""
+    d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.head_dim or d // h
+    attn = 2 * d * h * hd + 2 * d * kv * hd + (2 * hd if cfg.qk_norm else 0)
+    ends = 2 * cfg.vocab_size * d + d
+    if cfg.moe is None:
+        n = ends + cfg.num_layers * (attn + 3 * d * cfg.d_ff + 2 * d)
+        return n, n
+    m = cfg.moe
+    experts = 3 * m.num_experts * d * m.d_expert
+    moe = (attn + d * m.num_experts + 3 * d * m.num_shared * m.d_expert
+           + 2 * d + experts)
+    n = ends + attn + 3 * d * cfg.first_dense_ff + 2 * d + (
+        cfg.num_layers - 1) * moe
+    idle = experts * (m.num_experts - m.top_k) // m.num_experts
+    return n, n - (cfg.num_layers - 1) * idle
+
+
+def hand_resident(cfg, shape, multi: bool) -> float:
+    """Bytes a device holds by hand: every parameter over ``PARAM_WAYS``,
+    but K and V projections whose kv heads do not divide "model" (16)
+    only over "data"; the train state is f32 params, m and v (12 bytes a
+    parameter), serving f32 params and the bf16 K/V cache (batch over the
+    data axes, positions over "model").  The norms, router and scalars,
+    replicated, are left out: under 1 % at these widths."""
+    d, kv = cfg.d_model, cfg.num_kv_heads
+    hd = cfg.head_dim or d // cfg.num_heads
+    n, _ = hand_params(cfg)
+    kv_w = 0 if kv % 16 == 0 else cfg.num_layers * 2 * d * kv * hd
+    per = 12 if shape.kind == "train" else 4
+    out = per * (n - kv_w) / PARAM_WAYS + per * kv_w / 16
+    if shape.kind != "train":
+        ways = PARAM_WAYS * (2 if multi else 1)
+        out += (cfg.num_layers * 2 * shape.global_batch * shape.seq_len * kv
+                * hd * 2 / ways)
+    return out
+
+
+def print_counts() -> dict:
+    """This process's kernel launches and plain-version calls, on a line
+    of their own for the parent to read."""
+    counts = {"launches": ops.launch_counts(), "plain": ops.plain_counts()}
+    print(COUNTS_TAG + json.dumps(counts), flush=True)
+    return counts
+
+
+def read_counts(stdout: str, who: str) -> dict:
+    lines = [ln for ln in stdout.splitlines() if ln.startswith(COUNTS_TAG)]
+    if len(lines) != 1:
+        raise AssertionError(f"{who} printed {len(lines)} count lines")
+    return json.loads(lines[0][len(COUNTS_TAG):])
+
+
+def dryrun_main() -> int:
+    """``chip_smoke.py --dryrun``: the ``DRYRUN_CELLS`` traced on the
+    host (a fake default group each), one JSON record a line, then this
+    process's kernel counts."""
+    from repro_torch.launch import dryrun
+
+    for arch, shape, multi in DRYRUN_CELLS:
+        print(json.dumps(dryrun.trace_cell(arch, shape, multi)), flush=True)
+    print_counts()
+    return 0
+
+
+def launch_dryrun(card):
+    """(a) The dry run in a child process (it owns a fake default group):
+    prints each record and holds it against the figures by hand; returns
+    the records and the child's kernel counts."""
+    from repro_torch.configs.base import SHAPES
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), DRYRUN_FLAG],
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if res.returncode:
+        raise AssertionError("the dry run failed:\n" + res.stderr[-4000:])
+    recs = [json.loads(line) for line in res.stdout.splitlines()
+            if line.startswith("{")]
+    if len(recs) != len(DRYRUN_CELLS):
+        raise AssertionError(f"{len(recs)} dry-run records, expected"
+                             f" {len(DRYRUN_CELLS)}")
+    for rec in recs:
+        r = rec["roofline"]
+        cfg = get_config(rec["arch"])
+        total, active = hand_params(cfg)
+        hand = hand_resident(cfg, SHAPES[rec["shape"]], rec["mesh"] == "multi")
+        print(f"  dry run {rec['arch']} × {rec['shape']} × {rec['mesh']}"
+              f" ({rec['chips']} ranks): trace {rec['trace_s']} s,"
+              f" {rec['resident_bytes_per_chip'] / 2**30:.3f} GiB a device"
+              f" (by hand {hand / 2**30:.3f}), {rec['params_total']}"
+              f" parameters, {rec['params_active']} active,"
+              f" compute {r['compute_s']:.4f} s, memory"
+              f" {r['memory_s']:.4f} s, collective {r['collective_s']:.4f} s"
+              f" → {r['dominant']}, roofline"
+              f" {r['roofline_fraction'] * 100:.2f} %, useful FLOPs"
+              f" {r['useful_flops_fraction']:.3f}; {rec['ops_per_chip']}"
+              f" ops, collectives {rec['collectives']} (analytic, H100 SXM"
+              f" peaks) [{card}]", flush=True)
+        if not 0 < r["useful_flops_fraction"] <= 1:
+            raise AssertionError(f"{rec['arch']} {rec['shape']}: useful"
+                                 f" FLOPs fraction"
+                                 f" {r['useful_flops_fraction']}")
+        if not r["ici_bytes_per_chip"] > 0:
+            raise AssertionError(f"{rec['arch']} {rec['shape']}: no wire"
+                                 " bytes on a sharded mesh")
+        if (rec["params_total"], rec["params_active"]) != (total, active):
+            raise AssertionError(
+                f"{rec['arch']}: {rec['params_total']} parameters,"
+                f" {rec['params_active']} active; by hand {total}, {active}")
+        if not hand <= rec["resident_bytes_per_chip"] <= 1.01 * hand:
+            raise AssertionError(
+                f"{rec['arch']} {rec['shape']}: resident"
+                f" {rec['resident_bytes_per_chip']} a device against"
+                f" {hand:.0f} by hand")
+    counts = read_counts(res.stdout, "the dry run")
+    print(f"  dry-run process: {secs:.1f} s wall [{card}]", flush=True)
+    return recs, counts
+
+
+def _mesh_batches(cfg, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"tokens": rng.integers(0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ),
+                                    dtype=np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (MESH_BATCH, MESH_SEQ),
+                                    dtype=np.int32)} for _ in range(n)]
+
+
+class DropSecondMicrobatch:
+    """Planted fault: while entered, the loss of every second microbatch
+    (and so its gradient) is multiplied by 0."""
+
+    def __init__(self):
+        self.real, self.calls = lm.loss_fn, 0
+
+    def __enter__(self):
+        lm.loss_fn = self
+        return self
+
+    def __exit__(self, *exc):
+        lm.loss_fn = self.real
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        loss = self.real(*args, **kwargs)
+        return loss * 0 if self.calls % 2 == 0 else loss
+
+
+def _timed_steps(step, state, batches, device="cuda"):
+    times, mets = [], []
+    for b in batches:
+        sync(device)
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+        mets.append(met)
+    return state, mets, times
+
+
+def _differing(a, b, ma, mb) -> list:
+    """Leaves and metrics of a plain run (``a``, ``ma``) and a sharded one
+    (``b``, ``mb``, gathered) that differ in any bit."""
+    from repro_torch.launch.specs import full_state
+
+    bad = [p for (p, x), y in zip(leaf_paths(a), leaves(full_state(b)))
+           if not torch.equal(x, y)]
+    for i, (x, y) in enumerate(zip(ma, mb)):
+        y = full_state(y)
+        bad += [f"step {i} {k}" for k in x if not torch.equal(x[k], y[k])]
+    return bad
+
+
+def mesh_train_steps(card, device="cuda", cfg=None) -> dict:
+    """(b) The sharded step on a (1, 1) mesh (NCCL on the card) against
+    the plain step, bit for bit, without and with ``bf16_weights``; the
+    planted fault must break the equality."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import distribute_state
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.sharding import ShardCtx
+
+    cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH),
+                                     num_layers=MESH_LAYERS)
+    hyper = TrainHyper(**TRAIN_HYPER, shard_grad_accum=True)
+    mesh = make_host_mesh(device)
+    state = init_train_state(0, cfg, hyper, device=device)
+    batches = _mesh_batches(cfg, MESH_STEPS)
+    want, want_m, plain_t = _timed_steps(make_train_step(cfg, hyper), state,
+                                         batches, device)
+    out = {"plain_s": plain_t}
+    for bf16 in (False, True):
+        step = make_train_step(cfg, hyper, ShardCtx(mesh, bf16_weights=bf16))
+        got, got_m, t = _timed_steps(step, distribute_state(state, mesh),
+                                     batches, device)
+        bad = _differing(want, got, want_m, got_m)
+        print(f"  sharded step, (1, 1) mesh, bf16_weights={bf16}"
+              f" ({cfg.name}, {MESH_LAYERS} layers, {MESH_STEPS} steps of"
+              f" {MESH_BATCH} x {MESH_SEQ}, 2 microbatches): {len(bad)}"
+              f" leaves or metrics differ from the plain step; step s"
+              f" {[round(x, 4) for x in t]} against plain"
+              f" {[round(x, 4) for x in plain_t]} [{card}]", flush=True)
+        if bad:
+            raise AssertionError(f"sharded step differs: {bad[:5]}")
+        out[f"bf16_weights={bf16}_s"] = t
+        del got
+    with DropSecondMicrobatch():
+        step = make_train_step(cfg, hyper, ShardCtx(mesh))
+        got, got_m, _t = _timed_steps(step, distribute_state(state, mesh),
+                                      batches, device)
+    bad = _differing(want, got, want_m, got_m)
+    print(f"  planted fault (every second microbatch's gradient left out):"
+          f" {len(bad)} leaves or metrics differ", flush=True)
+    if not bad:
+        raise AssertionError("the planted fault left the state equal")
+    return out
+
+
+def mesh_resume(card, device="cuda") -> float:
+    """(c) ``Trainer.resume(mesh=)`` on the (1, 1) mesh of a checkpoint
+    the unsharded trainer wrote continues bit for bit with the unsharded
+    resume (smoke config, stores on ``device``)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import full_state
+
+    cfg = smoke_config(TRAIN_ARCH)
+    hyper = TrainHyper(num_microbatches=2, total_steps=40, warmup_steps=2)
+    every = RESUME["every"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        vss = VSS(os.path.join(root, "data"), config=VSSConfig(device=device))
+        n = write_token_corpus(vss, "corpus",
+                               markov_corpus(cfg.vocab_size, 200_000, seed=3))
+
+        def trainer():
+            pipe = TokenPipeline(vss, "corpus", n, batch=RESUME["batch"],
+                                 seq=RESUME["seq"])
+            ck = CheckpointManager(os.path.join(root, "ckpt"), keep_last=2,
+                                   device=device)
+            return Trainer(cfg, hyper, pipe, ck, device=device,
+                           tcfg=TrainerConfig(checkpoint_every=every,
+                                              log_every=4))
+
+        first = trainer().init()
+        first.train(every)
+        first.ckpt.wait()
+        runs = []
+        for mesh in (None, make_host_mesh(device)):
+            t = trainer()
+            t.tcfg = TrainerConfig(checkpoint_every=10 ** 9, log_every=4)
+            if not t.resume(mesh=mesh) or t.step != every:
+                raise AssertionError(f"resumed at {t.step}")
+            t.train(every + 4)
+            runs.append(t)
+        plain, sharded = runs
+        bad = [p for (p, a), b in zip(leaf_paths(plain.state),
+                                      leaves(full_state(sharded.state)))
+               if not torch.equal(a, b)]
+        for t in (first, *runs):
+            t.pipeline.close()
+            t.ckpt.close()
+        vss.close()
+    secs = time.perf_counter() - t0
+    print(f"  mesh resume ({cfg.name}, the unsharded trainer's checkpoint"
+          f" of step {every}, 4 more steps on a (1, 1) mesh): {len(bad)}"
+          f" state leaves differ from the unsharded resume; {secs:.1f} s"
+          f" [{card}]", flush=True)
+    if bad:
+        raise AssertionError(f"the mesh resume differs: {bad[:5]}")
+    return secs
+
+
+def mesh_steps_main() -> int:
+    """``chip_smoke.py --mesh-steps``: (b) and (c) on the card under
+    ``DETERMINISTIC_ENV`` and ``torch.use_deterministic_algorithms``, in
+    a one-rank NCCL group; no kernel may run."""
+    from repro_torch.launch.mesh import host_group
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    missing = {k: v for k, v in DETERMINISTIC_ENV.items()
+               if os.environ.get(k) != v}
+    if missing:
+        print(f"chip_smoke {MESH_STEPS_FLAG} needs {missing}",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    card = card_line()
+    with host_group("cuda"):
+        mesh_train_steps(card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_resume(card)
+    print_counts()
+    return 0
+
+
+def launch_phase(card) -> dict:
+    """(a) the dry run, (b) the sharded step and (c) the mesh resume,
+    each in a process of its own; none may launch a kernel."""
+    print("launch phase: (a) dry run on the host, (b) sharded train step on"
+          " a (1, 1) mesh, (c) resume on a mesh", flush=True)
+    t0 = time.perf_counter()
+    recs, dry_counts = launch_dryrun(card)
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), MESH_STEPS_FLAG],
+        env=dict(os.environ, **DETERMINISTIC_ENV), capture_output=True,
+        text=True, timeout=900)
+    sys.stdout.write(res.stdout)
+    print(f"  mesh-steps process (with {DETERMINISTIC_ENV}):"
+          f" {time.perf_counter() - t1:.1f} s, exit {res.returncode}"
+          f" [{card}]", flush=True)
+    if res.returncode:
+        raise AssertionError("the mesh steps failed:\n" + res.stderr[-4000:])
+    counts = {"dry run": dry_counts,
+              "mesh steps": read_counts(res.stdout, "the mesh steps")}
+    print(f"  hand-written kernel launches and plain-version calls in the"
+          f" phase's processes: {counts}", flush=True)
+    if any(c["launches"] or c["plain"] for c in counts.values()):
+        raise AssertionError(f"the launch phase ran kernels: {counts}")
+    secs = time.perf_counter() - t0
+    print(f"  launch phase: {secs:.1f} s wall [{card}]", flush=True)
+    return {"dryrun": recs, "secs": secs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3231,6 +3608,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     training_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launch_phase(card)
 
     kernels = []
     paths = dict(gpu["launches"])
@@ -3261,6 +3642,9 @@ def main() -> int:
     return 0
 
 
+CHILDREN = {CRASH_RESUME_FLAG: crash_resume_main, DRYRUN_FLAG: dryrun_main,
+            MESH_STEPS_FLAG: mesh_steps_main}
+
 if __name__ == "__main__":
-    sys.exit(crash_resume_main() if sys.argv[1:] == [CRASH_RESUME_FLAG]
-             else main())
+    sys.exit(CHILDREN[sys.argv[1]]() if len(sys.argv) == 2
+             and sys.argv[1] in CHILDREN else main())

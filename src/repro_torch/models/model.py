@@ -37,19 +37,37 @@ f32 masters are drawn with ``init_model(..., dtype=torch.float32)``).
 ``bind_reference`` runs a model with the values of such a tree.
 The decode cache is updated in place (the reference returns a new one):
 a dense cache at full width is large.
+
+Every entry point takes ``ctx``, a ``models.sharding.ShardCtx``.  With
+None (the default) it runs today's single-device ops.  With a ctx whose
+mesh is set, the parameters, batch and cache are DTensors on that mesh
+(``launch.specs``): the reference's sharding constraints are placed
+where it places them, each layer group is recomputed in the backward
+(``torch.utils.checkpoint``; the reference remats its group scan), a
+cache is updated by whole-tensor ops instead of in place, and the
+parameters may be cast to bf16 first (``cast_weights``).  A ctx without
+a mesh runs plain tensors with the recompute, which gives the same bits.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
-from repro_torch.tree import leaf_paths, tree_map
+from repro_torch.models.sharding import (
+    ShardCtx,
+    constrain_group_params,
+    is_dtensor,
+)
+from repro_torch.models.sharding import cast as to_dtype
+from repro_torch.tree import leaf_paths, tree_map, unflatten
 from repro_torch.utils import div_once
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -236,8 +254,10 @@ class CausalLM(torch.nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def forward(self, tokens: torch.Tensor, *, frames=None, patches=None):
-        return parallel(self, tokens, frames=frames, patches=patches)
+    def forward(self, tokens: torch.Tensor, *, frames=None, patches=None,
+                ctx: Optional[ShardCtx] = None):
+        return parallel(self, tokens, frames=frames, patches=patches,
+                        ctx=ctx)
 
 
 def resolve_device(device) -> torch.device:
@@ -267,6 +287,13 @@ def init_model(cfg: ArchConfig, *, device="cuda",
         generator = torch.Generator(dev).manual_seed(0)
     with torch.no_grad():
         return CausalLM(cfg, generator=generator, device=dev, dtype=dtype)
+
+
+def init_model_abstract(cfg: ArchConfig) -> Dict[str, Any]:
+    """Shape-only init (no allocation): the reference's parameter tree of
+    f32 masters as meta tensors."""
+    return reference_params(init_model(cfg, device="meta",
+                                       dtype=torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -376,8 +403,8 @@ def bind_reference(model: CausalLM, params: Mapping[str, Any]
     dtypes = {n: p.dtype for n, p in model.named_parameters()}
 
     def cast(name, value):
-        return value.to(dtypes[name]) if value.dtype == torch.float32 \
-            else value
+        return to_dtype(value, dtypes[name]) if value.dtype == \
+            torch.float32 else value
 
     out: Dict[str, torch.Tensor] = {}
     for (path, name), (_p, value) in zip(leaf_paths(names),
@@ -386,10 +413,55 @@ def bind_reference(model: CausalLM, params: Mapping[str, Any]
             if value.shape[0] != len(name):
                 raise ValueError(f"{path}: {value.shape[0]} stacked layers,"
                                  f" the model has {len(name)}")
-            out.update((n, cast(n, v)) for n, v in zip(name, value.unbind(0)))
+            out.update((n, cast(n, v)) for n, v in zip(name,
+                                                       _unstack(value)))
         else:
             out[name] = cast(name, value)
     return out
+
+
+def _unstack(value: torch.Tensor):
+    """A stacked leaf split along its group axis; a DTensor sharded on
+    that axis (the reference's rules shard the encoder's stacked leaves
+    as unstacked ones) is gathered along it first."""
+    if is_dtensor(value) and any(pl.is_shard(0) for pl in value.placements):
+        from torch.distributed.tensor import Replicate
+
+        value = value.redistribute(value.device_mesh, [
+            Replicate() if pl.is_shard(0) else pl for pl in value.placements])
+    return value.unbind(0)
+
+
+def model_from_params(cfg: ArchConfig, params: Mapping[str, Any]
+                      ) -> CausalLM:
+    """A ``CausalLM`` of ``cfg`` whose parameters are ``params`` (the
+    reference's tree, e.g. DTensors laid out by ``launch.specs``), cast
+    and unstacked by ``bind_reference``; no copy.  For ``prefill`` and
+    ``decode_step`` on a mesh."""
+    model = init_model(cfg, device="meta")
+    for name, value in bind_reference(model, params).items():
+        mod_name, _, attr = name.rpartition(".")
+        mod = model.get_submodule(mod_name) if mod_name else model
+        mod._parameters[attr] = value.detach()
+    return model
+
+
+def cast_weights(params: Mapping[str, Any], ctx: Optional[ShardCtx]):
+    """Under ``ctx.bf16_weights``, every f32 leaf but the norms, scales,
+    biases, gates and ``rg_a`` cast to bf16 (the reference's rule), on
+    the sharded representation: a DTensor's cast is local, so the gathers
+    that follow move bf16.  Otherwise ``params`` as they are."""
+    if ctx is None or not ctx.bf16_weights:
+        return params
+
+    def one(path, leaf):
+        name = path.rsplit("/", 1)[-1]
+        if leaf.dtype != torch.float32 or "norm" in name or name in (
+                "scale", "bias", "xgate", "mgate", "rg_a"):
+            return leaf
+        return to_dtype(leaf, COMPUTE_DTYPE)
+
+    return unflatten(params, [one(p, v) for p, v in leaf_paths(params)])
 
 
 def _same_keys(ref, port, path=()) -> None:
@@ -441,35 +513,74 @@ def from_reference_params(params_np: Mapping[str, Any], cfg: ArchConfig,
 # parallel (forward / prefill) pass
 # ---------------------------------------------------------------------------
 
-def _embed_tokens(model: CausalLM, tokens: torch.Tensor) -> torch.Tensor:
-    return model.embed[tokens.to(device=model.device, dtype=torch.long)]
+def _embed_tokens(model: CausalLM, tokens: torch.Tensor,
+                  ctx: ShardCtx = L.NO_MESH) -> torch.Tensor:
+    tokens = tokens.to(device=model.device, dtype=torch.long)
+    if ctx.mesh is None:
+        return model.embed[tokens]
+    # vocab-parallel lookup: each device looks up the rows of its vocab
+    # shard (the table gathered over "data") and the shards' rows are
+    # summed (a partial sum over "model")
+    v = model.embed.shape[0]
+    v_ax = ctx.fit((v,), ("model",))[0]
+    first = ctx.coordinate("model") * (v // ctx.axis_size("model")) \
+        if v_ax else 0
+
+    def look(table, ids):
+        if v_ax is None:
+            return (table[ids],)
+        ids = ids - first
+        inside = (ids >= 0) & (ids < table.shape[0])
+        rows = table[torch.clamp(ids, 0, table.shape[0] - 1)]
+        return (rows * inside[..., None].to(rows.dtype),)
+
+    lay = list(ctx.placements(tuple(tokens.shape) + (model.embed.shape[1],),
+                              (ctx.dp,)))
+    if v_ax is not None:
+        from torch.distributed.tensor import Partial
+
+        lay[ctx.axis_names.index(v_ax)] = Partial()
+    x, = ctx.local_map(look, (model.embed, tokens), ((v_ax, None),
+                                                      (ctx.dp,)),
+                       [tuple(lay)])
+    return ctx.cs(x, ctx.dp, None, None)
 
 
-def unembed(model: CausalLM, x: torch.Tensor) -> torch.Tensor:
-    x = L.apply_norm(model.final_norm, x)
+def unembed(model: CausalLM, x: torch.Tensor,
+            ctx: ShardCtx = L.NO_MESH) -> torch.Tensor:
+    x = L.apply_norm(model.final_norm, x, ctx)
     w = (model.embed.to(x.dtype).T if model.cfg.tie_embeddings
          else model.lm_head.to(x.dtype))
-    return x @ w
+    logits = ctx.mm(x, w, (ctx.dp, None, None), (None, "model"))
+    return ctx.cs(logits, ctx.dp, None, "model")
 
 
-def _frontend(model: CausalLM, x: torch.Tensor) -> torch.Tensor:
+def _frontend(model: CausalLM, x: torch.Tensor,
+              ctx: ShardCtx = L.NO_MESH) -> torch.Tensor:
     x = x.to(device=model.device, dtype=COMPUTE_DTYPE)
-    return x @ model.frontend_proj.to(COMPUTE_DTYPE)
+    return ctx.mm(x, model.frontend_proj.to(COMPUTE_DTYPE),
+                  (ctx.dp, None, None), (None, None))
 
 
-def _encode_audio(model: CausalLM, frames: torch.Tensor) -> torch.Tensor:
-    """Whisper encoder over stubbed frame embeddings (B, T, frontend_dim)."""
+def _encode_audio(model: CausalLM, frames: torch.Tensor,
+                  ctx: ShardCtx = L.NO_MESH, remat: bool = False
+                  ) -> torch.Tensor:
+    """Whisper encoder over stubbed frame embeddings (B, T, frontend_dim);
+    with ``remat`` each layer is recomputed in the backward."""
     enc = model.encoder
-    x = _frontend(model, frames)
+    x = _frontend(model, frames, ctx)
     t = x.shape[1]
     x = x + enc.pos_embed[:t].to(x.dtype)[None]
-    positions = torch.arange(t, device=x.device)
+    x = ctx.cs(x, ctx.dp, None, None)
+    positions = ctx.const(torch.arange(t, device=x.device))
     for layer in enc.layers:
-        x, _ = _layer(layer, x, model.cfg, positions, None)
-    return L.apply_norm(enc.norm, x)
+        x, _ = _run_group([layer], x, 0.0, model.cfg, positions, None, ctx,
+                          remat, ctx.dp, None)
+    return L.apply_norm(enc.norm, x, ctx)
 
 
-def _memory_for(model: CausalLM, frames, patches):
+def _memory_for(model: CausalLM, frames, patches,
+                ctx: ShardCtx = L.NO_MESH, remat: bool = False):
     """Cross-attention memory from the (stubbed) modality frontend."""
     family = model.cfg.family
     need = {"audio": ("frames", frames), "vlm": ("patches", patches)}
@@ -477,25 +588,31 @@ def _memory_for(model: CausalLM, frames, patches):
         name, value = need[family]
         if value is None:
             raise ValueError(f"the {family} family needs {name!r}")
-        return (_encode_audio(model, value) if family == "audio"
-                else _frontend(model, value))
+        if family == "audio":
+            return _encode_audio(model, value, ctx, remat)
+        return ctx.cs(_frontend(model, value, ctx), ctx.dp, None, None)
     return None
 
 
-def _cross_kv(p: L.Attention, memory: torch.Tensor):
-    dt = memory.dtype
-    return (torch.einsum("btd,dhk->bthk", memory, p.wk.to(dt)),
-            torch.einsum("btd,dhk->bthk", memory, p.wv.to(dt)))
+def _cross_kv(p: L.Attention, memory: torch.Tensor,
+              ctx: ShardCtx = L.NO_MESH):
+    kv_ax = L.heads_of(ctx, p.wq.shape[1], p.wk.shape[1])[1]
+    k = L.head_proj(memory, p.wk, ctx, kv_ax)
+    v = L.head_proj(memory, p.wv, ctx, kv_ax)
+    return (ctx.cs(k, ctx.dp, None, "model", None),
+            ctx.cs(v, ctx.dp, None, "model", None))
 
 
-def _cross_attention(p: L.Attention, x, memory, cfg: ArchConfig):
+def _cross_attention(p: L.Attention, x, memory, cfg: ArchConfig,
+                     ctx: ShardCtx = L.NO_MESH):
     """Cross-attention: queries from x, keys/values from memory."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
-    k, v = _cross_kv(p, memory.to(x.dtype))
+    q_ax = L.heads_of(ctx, p.wq.shape[1], p.wk.shape[1])[0]
+    q = ctx.cs(L.head_proj(x, p.wq, ctx, q_ax), ctx.dp, None, "model", None)
+    k, v = _cross_kv(p, memory.to(x.dtype), ctx)
     if cfg.qk_norm:
-        q = L.rmsnorm(q, p.q_norm)
-        k = L.rmsnorm(k, p.k_norm)
-    return L.attn_out(p, L.attention(q, k, v, causal=False))
+        q = ctx.rowwise(L.rmsnorm, q, p.q_norm)
+        k = ctx.rowwise(L.rmsnorm, k, p.k_norm)
+    return L.attn_out(p, L.attention(q, k, v, causal=False, ctx=ctx), ctx)
 
 
 def _quantize_kv(x: torch.Tensor):
@@ -507,8 +624,11 @@ def _quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), s.to(COMPUTE_DTYPE)
 
 
-def _fill_kv(c: Dict, typ: str, k, v) -> None:
-    """Write a prefill's K/V (B, S, Hkv, hd) into one layer's cache."""
+def _fill_kv(c: Dict, typ: str, k, v, ctx: ShardCtx = L.NO_MESH) -> None:
+    """Write a prefill's K/V (B, S, Hkv, hd) into one layer's cache (on a
+    mesh: a new tensor for each entry, ``_fill_kv_mesh``)."""
+    if ctx.mesh is not None:
+        return _fill_kv_mesh(c, typ, k, v, ctx)
     s = k.shape[1]
     if typ == "local":  # the last min(S, w) positions into slots pos % w
         w = c["k"].shape[1]
@@ -529,89 +649,202 @@ def _fill_kv(c: Dict, typ: str, k, v) -> None:
     c["v"][:, :s] = v
 
 
+def _prefix(new, old, s: int, ctx: ShardCtx):
+    """``old`` with its first ``s`` positions (dim 1) replaced by ``new``,
+    laid out as ``old``."""
+    if s < old.shape[1]:
+        new = torch.cat([new.to(old.dtype), old[:, s:]], dim=1)
+    return ctx.cs(new.to(old.dtype), *ctx.spec_of(old))
+
+
+def _fill_kv_mesh(c: Dict, typ: str, k, v, ctx: ShardCtx) -> None:
+    s = k.shape[1]
+    if typ == "local":  # the ring: slot j holds the last position ≡ j
+        w = c["k"].shape[1]
+        take = min(s, w)
+        if take < w:  # positions 0..S-1 in slots 0..S-1
+            c["k"] = _prefix(k, c["k"], s, ctx)
+            c["v"] = _prefix(v, c["v"], s, ctx)
+            pos = ctx.const(torch.arange(s, dtype=torch.int32,
+                                         device=k.device))
+            c["pos_abs"] = _prefix(pos[None].expand(k.shape[0], s),
+                                   c["pos_abs"], s, ctx)
+            return
+        j = torch.arange(w, device=k.device)
+        tpos = (s - w) + (j - (s - w)) % w  # the position slot j holds
+        idx = ctx.const(tpos)
+        c["k"] = _prefix(k[:, idx], c["k"], w, ctx)
+        c["v"] = _prefix(v[:, idx], c["v"], w, ctx)
+        c["pos_abs"] = _prefix(
+            idx.to(torch.int32)[None].expand(k.shape[0], w), c["pos_abs"],
+            w, ctx)
+        return
+    if s > c["k"].shape[1]:
+        raise ValueError(f"a prefill of {s} tokens does not fit a cache of"
+                         f" {c['k'].shape[1]} positions")
+    if "kscale" in c:  # int8 KV view
+        k, ks = _quantize_kv(k)
+        v, vs = _quantize_kv(v)
+        c["kscale"] = _prefix(ks, c["kscale"], s, ctx)
+        c["vscale"] = _prefix(vs, c["vscale"], s, ctx)
+    c["k"] = _prefix(k, c["k"], s, ctx)
+    c["v"] = _prefix(v, c["v"], s, ctx)
+
+
 def _layer(p: Layer, x, cfg: ArchConfig, positions, memory,
-           c: Optional[Dict] = None):
+           c: Optional[Dict] = None, ctx: ShardCtx = L.NO_MESH):
     """The parallel pass of one layer.  With its cache ``c`` (prefill) it
     also fills the layer's decode state in place.  Returns (x, MoE aux)."""
     typ = p.typ
     if typ in SELF_ATTN_TYPES:
         window = cfg.local_window if typ == "local" else None
         acfg = _attn_cfg(cfg, window=window, causal=(typ != "enc"))
-        h = L.apply_norm(p.ln1, x)
-        q, k, v = L.attn_qkv(p.attn, h, acfg, positions)
-        o = L.attention(q, k, v, causal=acfg.causal, window=window)
-        x = x + L.attn_out(p.attn, o)
+        h = L.apply_norm(p.ln1, x, ctx)
+        q, k, v = L.attn_qkv(p.attn, h, acfg, positions, ctx)
+        o = L.attention(q, k, v, causal=acfg.causal, window=window, ctx=ctx)
+        x = x + L.attn_out(p.attn, o, ctx)
         if c is not None:
-            _fill_kv(c, typ, k, v)
+            _fill_kv(c, typ, k, v, ctx)
         if typ == "dec":
-            h = L.apply_norm(p.lnx, x)
-            x = x + _cross_attention(p.xattn, h, memory, cfg)
+            h = L.apply_norm(p.lnx, x, ctx)
+            x = x + _cross_attention(p.xattn, h, memory, cfg, ctx)
             if c is not None:
-                c["xk"], c["xv"] = _cross_kv(p.xattn, memory.to(x.dtype))
-        h = L.apply_norm(p.ln2, x)
+                c["xk"], c["xv"] = _cross_kv(p.xattn, memory.to(x.dtype),
+                                             ctx)
+        h = L.apply_norm(p.ln2, x, ctx)
         if typ == "moe":
-            y, aux = L.moe_block(p.moe, h, _moe_cfg(cfg), cfg.act)
+            y, aux = L.moe_block(p.moe, h, _moe_cfg(cfg), cfg.act, ctx)
             return x + y, aux
-        return x + L.mlp_block(p.mlp, h, cfg.act), 0.0
-    h = L.apply_norm(p.ln1, x)
+        return x + L.mlp_block(p.mlp, h, cfg.act, ctx), 0.0
+    h = L.apply_norm(p.ln1, x, ctx)
     if typ == "xattn":
         if c is not None:
-            c["xk"], c["xv"] = _cross_kv(p.xattn, memory.to(x.dtype))
-        o = _cross_attention(p.xattn, h, memory, cfg)
+            c["xk"], c["xv"] = _cross_kv(p.xattn, memory.to(x.dtype), ctx)
+        o = _cross_attention(p.xattn, h, memory, cfg, ctx)
         x = x + torch.tanh(p.xgate).to(x.dtype) * o
-        h = L.apply_norm(p.ln2, x)
-        m = L.mlp_block(p.mlp, h, cfg.act)
+        h = L.apply_norm(p.ln2, x, ctx)
+        m = L.mlp_block(p.mlp, h, cfg.act, ctx)
         return x + torch.tanh(p.mgate).to(x.dtype) * m, 0.0
     if typ == "rglru":
         if c is None:
-            o = R.rglru_block(p.rec, h)
+            o = R.rglru_block(p.rec, h, ctx)
         else:
-            o, state = R.rglru_block_prefill(p.rec, h)
+            o, state = R.rglru_block_prefill(p.rec, h, ctx)
             c.update(state)
         x = x + o
-        h = L.apply_norm(p.ln2, x)
-        return x + L.mlp_block(p.mlp, h, cfg.act), 0.0
+        h = L.apply_norm(p.ln2, x, ctx)
+        return x + L.mlp_block(p.mlp, h, cfg.act, ctx), 0.0
     if typ == "mlstm":
         if c is None:
-            return x + R.mlstm_block(p.lstm, h, _mlstm_cfg(cfg)), 0.0
-        o, state = R.mlstm_block_prefill(p.lstm, h, _mlstm_cfg(cfg))
+            return x + R.mlstm_block(p.lstm, h, _mlstm_cfg(cfg), ctx), 0.0
+        o, state = R.mlstm_block_prefill(p.lstm, h, _mlstm_cfg(cfg), ctx)
     else:  # slstm
-        o, state = R.slstm_block_prefill(p.lstm, h, _slstm_cfg(cfg))
+        o, state = R.slstm_block_prefill(p.lstm, h, _slstm_cfg(cfg), ctx)
     if c is not None:
         c.update(state)
     return x + o, 0.0
 
 
-def _start(model: CausalLM, tokens, frames, patches):
+def _start(model: CausalLM, tokens, frames, patches,
+           ctx: ShardCtx = L.NO_MESH, remat: bool = False):
     """Embedded tokens (+ learned positions), the positions and the
     cross-attention memory of a parallel pass."""
-    x = _embed_tokens(model, tokens)
+    x = _embed_tokens(model, tokens, ctx)
     s = x.shape[1]
     if model.pos_embed is not None:
         x = x + model.pos_embed[:s].to(x.dtype)[None]
-    positions = torch.arange(s, device=x.device)
-    return x, positions, _memory_for(model, frames, patches)
+    positions = ctx.const(torch.arange(s, device=x.device))
+    return x, positions, _memory_for(model, frames, patches, ctx, remat)
+
+
+def _remat_context(ctx: ShardCtx):
+    """The recompute's context_fn: under ``save_tp`` the ops made inside
+    ``layers.tp_block_out`` are kept, every other one recomputed."""
+    if ctx.remat_policy != "save_tp":
+        return torch_checkpoint.noop_context_fn
+    CP = torch_checkpoint.CheckpointPolicy
+
+    def policy(_ctx, _op, *args, **kwargs):
+        return CP.MUST_SAVE if L.in_tp_block_out() else CP.PREFER_RECOMPUTE
+
+    return lambda: torch_checkpoint.create_selective_checkpoint_contexts(
+        policy)
+
+
+def _run_group(layers, x, aux, cfg: ArchConfig, positions, memory,
+               ctx: ShardCtx, remat: bool, *carry_spec):
+    """One layer group (the reference's scan body): its layers in order,
+    the MoE aux summed, the carry laid out as ``carry_spec``.  With
+    ``remat`` the group is recomputed in the backward: its parameters
+    pass into the checkpointed function and are bound there again, so
+    the recompute sees the values the forward saw (the caller may have
+    bound them with ``functional_call``, which has returned by the time
+    the backward runs)."""
+    def run(x, aux, *values):
+        with _bound_slots(slots, values):
+            for layer in layers:
+                x, a = _layer(layer, x, cfg, positions, memory, ctx=ctx)
+                aux = aux + a
+        return ctx.cs(x, *carry_spec), aux
+
+    slots = [(mod, name) for layer in layers for mod in layer.modules()
+             for name, t in mod._parameters.items() if t is not None]
+    values = constrain_group_params(
+        [(name, mod._parameters[name]) for mod, name in slots], ctx)
+    if not remat:
+        return run(x, aux, *values)
+    return torch_checkpoint.checkpoint(
+        run, x, aux, *values, use_reentrant=False,
+        context_fn=_remat_context(ctx))
+
+
+@contextlib.contextmanager
+def _bound_slots(slots, values):
+    old = [mod._parameters[name] for mod, name in slots]
+    for (mod, name), v in zip(slots, values):
+        mod._parameters[name] = v
+    try:
+        yield
+    finally:
+        for (mod, name), v in zip(slots, old):
+            mod._parameters[name] = v
 
 
 def parallel(model: CausalLM, tokens: torch.Tensor, *, frames=None,
-             patches=None) -> Tuple[torch.Tensor, torch.Tensor]:
+             patches=None, ctx: Optional[ShardCtx] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Parallel pass with autograd on (a trainer's).  tokens (B, S) [+
     frames (B, T, frontend_dim) for audio | patches (B, T, frontend_dim)
     for vision].  Returns (logits (B, S, V) bf16, the MoE aux summed over
-    layers, an f32 scalar)."""
-    x, positions, memory = _start(model, tokens, frames, patches)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in model.layers:
-        x, a = _layer(layer, x, model.cfg, positions, memory)
+    layers, an f32 scalar).  With a ``ctx`` each layer group (and each
+    encoder layer) is recomputed in the backward, as the reference's
+    remat'd scans are."""
+    remat = ctx is not None
+    ctx = ctx or L.NO_MESH
+    x, positions, memory = _start(model, tokens, frames, patches, ctx, remat)
+    aux = ctx.const(torch.zeros((), dtype=torch.float32, device=x.device))
+    plan = model.plan
+    layers = list(model.layers)
+    nh, p = len(plan.head), len(plan.pattern)
+    nb = nh + plan.n_groups * p
+    for layer in layers[:nh]:
+        x, a = _layer(layer, x, model.cfg, positions, memory, ctx=ctx)
         aux = aux + a
-    return unembed(model, x), aux
+    for g0 in range(nh, nb, p):
+        x, aux = _run_group(layers[g0:g0 + p], x, aux, model.cfg, positions,
+                            memory, ctx, remat, ctx.dp, ctx.act_seq, None)
+    for layer in layers[nb:]:
+        x, a = _layer(layer, x, model.cfg, positions, memory, ctx=ctx)
+        aux = aux + a
+    return unembed(model, x, ctx), aux
 
 
 @torch.no_grad()
 def forward(model: CausalLM, tokens: torch.Tensor, *, frames=None,
-            patches=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            patches=None, ctx: Optional[ShardCtx] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``parallel`` without autograd (serving and evaluation)."""
-    return parallel(model, tokens, frames=frames, patches=patches)
+    return parallel(model, tokens, frames=frames, patches=patches, ctx=ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -623,7 +856,8 @@ FRONTEND_INPUTS = ("frames", "patches")
 
 
 def loss_fn(model_or_params, cfg: ArchConfig, batch: Mapping[str, Any], *,
-            skeleton: Optional[CausalLM] = None) -> torch.Tensor:
+            skeleton: Optional[CausalLM] = None,
+            ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Causal-LM cross entropy (labels < 0 are masked) + MoE aux, with
     autograd on: ``MOE_AUX_WEIGHT · aux / n_moe`` over the layers of type
     ``moe``; the logsumexp in f32.  ``batch`` holds tensors: tokens and
@@ -633,21 +867,32 @@ def loss_fn(model_or_params, cfg: ArchConfig, batch: Mapping[str, Any], *,
     gradients) or the reference's parameter tree of tensors (its leaves
     get them, through ``bind_reference``'s casts), which is then run in
     ``skeleton``, a ``CausalLM`` of ``cfg`` whose own values are unused
-    (made on the meta device when None)."""
+    (made on the meta device when None); ``cast_weights`` first under
+    ``ctx.bf16_weights``.  ``ctx`` as ``parallel``."""
     extra = {k: batch[k] for k in FRONTEND_INPUTS if k in batch}
     if isinstance(model_or_params, CausalLM):
-        logits, aux = model_or_params(batch["tokens"], **extra)
+        logits, aux = model_or_params(batch["tokens"], ctx=ctx, **extra)
     else:
         model = skeleton or init_model(cfg, device="meta")
+        params = cast_weights(model_or_params, ctx)
         logits, aux = torch.func.functional_call(
-            model, bind_reference(model, model_or_params),
-            (batch["tokens"],), extra)
-    labels = torch.as_tensor(batch["labels"]).to(device=logits.device,
-                                                 dtype=torch.long)
+            model, bind_reference(model, params), (batch["tokens"],),
+            dict(extra, ctx=ctx))
+    labels = batch["labels"]
+    if not isinstance(labels, torch.Tensor):
+        labels = torch.as_tensor(labels)
+    labels = labels.to(device=logits.device, dtype=torch.long)
     mask = (labels >= 0).to(torch.float32)
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    gold_ids = torch.clamp(labels, min=0)
+    if ctx is None or ctx.mesh is None:
+        gold = torch.gather(lf, -1, gold_ids[..., None])[..., 0]
+    else:  # a select over the vocab that stays vocab-sharded (exact)
+        vocab = ctx.const(torch.arange(lf.shape[-1], device=lf.device))
+        gold = torch.where(vocab == gold_ids[..., None], lf,
+                           torch.zeros((), dtype=lf.dtype,
+                                       device=lf.device)).sum(-1)
     nll = (lse - gold) * mask
     loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
     n_moe = sum(1 for t in cfg.layer_types() if t == "moe")
@@ -754,95 +999,212 @@ def _decode_attention(q, k, v, valid_mask=None, k_scale=None, v_scale=None):
     return o.reshape(b, 1, hq, hd)
 
 
-def _step_attn_common(p: L.Attention, h, cfg: ArchConfig, pos):
+def _decode_attention_on(ctx: ShardCtx, q, k, v, valid_mask=None,
+                         k_scale=None, v_scale=None):
+    """``_decode_attention`` on a mesh, the cache laid out by its rules:
+    over its heads (cross-KV), each device attends its own heads; over
+    its positions (the self-attention cache, sequence-parallel), each
+    device scores its own positions and the softmax is combined across
+    them (``_decode_split``); else each data shard attends its rows."""
+    if ctx.mesh is None:
+        return _decode_attention(q, k, v, valid_mask, k_scale, v_scale)
+    kspec = ctx.spec_of(k)
+    dp = kspec[0]
+    opt = [(t, sp) for t, sp in ((valid_mask, kspec[:2]),
+                                  (k_scale, kspec[:3]), (v_scale, kspec[:3]))
+           if t is not None]
+    names = [n for n, t in (("valid_mask", valid_mask), ("k_scale", k_scale),
+                            ("v_scale", v_scale)) if t is not None]
+    if kspec[1] is not None:
+        return _decode_split(ctx, q, k, v, valid_mask, k_scale, v_scale,
+                             kspec)
+    q_ax, kv_ax, pick = L.heads_of(ctx, q.shape[2], k.shape[2],
+                                   kspec[2] or "model")
+    if kspec[2] is None:
+        q_ax = pick = None
+    q_spec = (dp, None, q_ax, None)
+
+    def fn(q, k, v, *rest):
+        if pick is not None:
+            idx = torch.tensor(pick, device=k.device)
+            k, v = k[:, :, idx], v[:, :, idx]
+        return (_decode_attention(q, k, v, **dict(zip(names, rest))),)
+
+    return ctx.local_map(fn, (q, k, v, *[t for t, _ in opt]),
+                         (q_spec, kspec, kspec, *[sp for _, sp in opt]),
+                         [ctx.placements(q.shape, q_spec)])[0]
+
+
+def _decode_split(ctx: ShardCtx, q, k, v, valid, k_scale, v_scale, kspec):
+    """Decode attention over a cache whose positions are split over the
+    mesh axis ``kspec[1]``: each device scores its own positions (and
+    their max and sum of exponentials), the max and sum are combined
+    across the axis, then each device weights its own values by the
+    global softmax (rounded to bf16, as ``_decode_attention``) and the
+    partial sums are added across the axis."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    dp, ax = kspec[0], kspec[1]
+    b, _, hq, hd = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = float(1.0 / np.sqrt(hd))
+    has_ks, has_vs = k_scale is not None, v_scale is not None
+
+    def scores(q, k, valid, *ks):
+        s = torch.einsum("bhgd,blhd->bhgl",
+                         q.reshape(q.shape[0], hkv, g, hd).to(torch.float32),
+                         k.to(torch.float32))
+        if ks:
+            s = s * ks[0].to(torch.float32).permute(0, 2, 1)[:, :, None]
+        s = torch.where(valid[:, None, None, :], s * scale,
+                        torch.tensor(L.NEG_INF, dtype=s.dtype,
+                                     device=s.device))
+        mx = s.amax(-1)
+        return s, mx[None], torch.exp(s - mx[..., None]).sum(-1)[None]
+
+    stat = (b, hkv, g)
+    s, mx, sm = ctx.local_map(
+        scores, (q, k, valid) + ((k_scale,) if has_ks else ()),
+        ((dp, None, None, None), kspec, kspec[:2]) + ((kspec[:3],)
+                                                       if has_ks else ()),
+        [ctx.placements((b, hkv, g, k.shape[1]), (dp, None, None, ax)),
+         ctx.placements((ctx.axis_size(ax),) + stat, (ax, dp)),
+         ctx.placements((ctx.axis_size(ax),) + stat, (ax, dp))])
+    m = ctx.cs(mx.amax(0), dp)
+    total = ctx.cs((sm * torch.exp(mx - m[None])).sum(0), dp)
+
+    def weigh(s, m, total, v, *vs):
+        p = torch.exp(s - m[..., None]) / total[..., None]
+        if vs:
+            p = p * vs[0].to(torch.float32).permute(0, 2, 1)[:, :, None]
+        o = torch.einsum("bhgl,blhd->bhgd",
+                         p.to(COMPUTE_DTYPE).to(torch.float32),
+                         v.to(torch.float32))
+        return (o.reshape(o.shape[0], 1, hq, hd),)
+
+    part = list(ctx.placements((b, 1, hq, hd), (dp,)))
+    part[ctx.axis_names.index(ax)] = Partial()
+    o, = ctx.local_map(
+        weigh, (s, m, total, v) + ((v_scale,) if has_vs else ()),
+        ((dp, None, None, ax), (dp,), (dp,), kspec)
+        + ((kspec[:3],) if has_vs else ()), [tuple(part)])
+    assert isinstance(o, DTensor)
+    return ctx.cs(o, dp)
+
+
+def _step_attn_common(p: L.Attention, h, cfg: ArchConfig, pos,
+                      ctx: ShardCtx = L.NO_MESH):
     """Project + rope the single new token. h: (B,1,D) → q,k,v (B,1,·,hd)."""
-    dt = h.dtype
-    q = torch.einsum("bsd,dhk->bshk", h, p.wq.to(dt))
-    k = torch.einsum("bsd,dhk->bshk", h, p.wk.to(dt))
-    v = torch.einsum("bsd,dhk->bshk", h, p.wv.to(dt))
+    q, k, v = L.qkv_proj(p, h, ctx)
     if cfg.qk_norm:
-        q = L.rmsnorm(q, p.q_norm)
-        k = L.rmsnorm(k, p.k_norm)
+        q = ctx.rowwise(L.rmsnorm, q, p.q_norm)
+        k = ctx.rowwise(L.rmsnorm, k, p.k_norm)
     if cfg.use_rope:
-        q = L.rope(q, pos[:, None], cfg.rope_theta)
-        k = L.rope(k, pos[:, None], cfg.rope_theta)
+        q = L.rope(q, pos[:, None], cfg.rope_theta, ctx)
+        k = L.rope(k, pos[:, None], cfg.rope_theta, ctx)
     return q, k, v
 
 
-def _step_cross(p: L.Attention, h, c: Dict):
+def _step_cross(p: L.Attention, h, c: Dict, ctx: ShardCtx = L.NO_MESH):
     """The new token's cross-attention over the cached cross-KV; the
     query takes no qk-norm, as in the reference's step."""
-    qx = torch.einsum("bsd,dhk->bshk", h, p.wq.to(h.dtype))
-    return L.attn_out(p, _decode_attention(qx, c["xk"], c["xv"]).to(h.dtype))
+    q_ax = L.heads_of(ctx, p.wq.shape[1], p.wk.shape[1])[0]
+    qx = L.head_proj(h, p.wq, ctx, q_ax)
+    o = _decode_attention_on(ctx, qx, c["xk"], c["xv"])
+    return L.attn_out(p, o.to(h.dtype), ctx)
 
 
-def _step_layer(p: Layer, c: Dict, x, cfg: ArchConfig, pos):
+def _put_rows(c: Dict, name: str, slot, value, ctx: ShardCtx) -> None:
+    """Row b of ``c[name]`` at position ``slot[b]`` (dim 1) set to
+    ``value[b]``: in place without a mesh; on one, a new tensor of the
+    same layout by one whole-tensor select (a DTensor takes no indexed
+    write)."""
+    buf = c[name]
+    if ctx.mesh is None:
+        buf[torch.arange(buf.shape[0], device=buf.device), slot] = value
+        return
+    at = (ctx.const(torch.arange(buf.shape[1], device=buf.device))[None, :]
+          == slot[:, None])  # (B, L)
+    at = at.reshape(*at.shape, *([1] * (buf.dim() - 2)))
+    value = value.to(buf.dtype).reshape(buf.shape[0], 1, *buf.shape[2:])
+    c[name] = ctx.cs(torch.where(at, value, buf), *ctx.spec_of(buf))
+
+
+def _step_layer(p: Layer, c: Dict, x, cfg: ArchConfig, pos,
+                ctx: ShardCtx = L.NO_MESH):
     """One-token update of one layer, its state ``c`` updated in place.
     x: (B,1,D); pos: (B,) int32."""
     typ = p.typ
-    bidx = torch.arange(x.shape[0], device=x.device)
     lpos = pos.long()
-    h = L.apply_norm(p.ln1, x)
+    h = L.apply_norm(p.ln1, x, ctx)
     if typ in KV_TYPES or typ == "local":
-        q, k, v = _step_attn_common(p.attn, h, cfg, pos)
+        q, k, v = _step_attn_common(p.attn, h, cfg, pos, ctx)
         k, v = k[:, 0], v[:, 0]
         if typ == "local":
             slot = lpos % c["k"].shape[1]
-            c["k"][bidx, slot] = k
-            c["v"][bidx, slot] = v
-            c["pos_abs"][bidx, slot] = pos
+            _put_rows(c, "k", slot, k, ctx)
+            _put_rows(c, "v", slot, v, ctx)
+            _put_rows(c, "pos_abs", slot, pos, ctx)
             pa = c["pos_abs"]
             valid = (pa >= 0) & (pa <= pos[:, None]) & (
                 pa > pos[:, None] - cfg.local_window)
         else:
             if "kscale" in c:  # int8 KV view
-                k, c["kscale"][bidx, lpos] = _quantize_kv(k)
-                v, c["vscale"][bidx, lpos] = _quantize_kv(v)
-            c["k"][bidx, lpos] = k
-            c["v"][bidx, lpos] = v
-            valid = (torch.arange(c["k"].shape[1], device=x.device)[None, :]
+                k, ks = _quantize_kv(k)
+                v, vs = _quantize_kv(v)
+                _put_rows(c, "kscale", lpos, ks, ctx)
+                _put_rows(c, "vscale", lpos, vs, ctx)
+            _put_rows(c, "k", lpos, k, ctx)
+            _put_rows(c, "v", lpos, v, ctx)
+            valid = (ctx.const(torch.arange(c["k"].shape[1],
+                                            device=x.device))[None, :]
                      <= pos[:, None])
-        o = _decode_attention(q, c["k"], c["v"], valid, c.get("kscale"),
-                              c.get("vscale"))
-        x = x + L.attn_out(p.attn, o.to(x.dtype))
+        o = _decode_attention_on(ctx, q, c["k"], c["v"], valid,
+                                 c.get("kscale"), c.get("vscale"))
+        x = x + L.attn_out(p.attn, o.to(x.dtype), ctx)
         if typ == "dec":
-            x = x + _step_cross(p.xattn, L.apply_norm(p.lnx, x), c)
-        h = L.apply_norm(p.ln2, x)
+            x = x + _step_cross(p.xattn, L.apply_norm(p.lnx, x, ctx), c, ctx)
+        h = L.apply_norm(p.ln2, x, ctx)
         if typ == "moe":  # over the step's B tokens: capacity at least 8
-            return x + L.moe_block(p.moe, h, _moe_cfg(cfg), cfg.act)[0]
-        return x + L.mlp_block(p.mlp, h, cfg.act)
+            return x + L.moe_block(p.moe, h, _moe_cfg(cfg), cfg.act, ctx)[0]
+        return x + L.mlp_block(p.mlp, h, cfg.act, ctx)
     if typ == "xattn":
-        x = x + torch.tanh(p.xgate).to(x.dtype) * _step_cross(p.xattn, h, c)
-        h = L.apply_norm(p.ln2, x)
-        m = L.mlp_block(p.mlp, h, cfg.act)
+        x = x + torch.tanh(p.xgate).to(x.dtype) * _step_cross(p.xattn, h, c,
+                                                              ctx)
+        h = L.apply_norm(p.ln2, x, ctx)
+        m = L.mlp_block(p.mlp, h, cfg.act, ctx)
         return x + torch.tanh(p.mgate).to(x.dtype) * m
     if typ == "rglru":
-        state, o = R.rglru_block_step(p.rec, c, h[:, 0])
+        state, o = R.rglru_block_step(p.rec, c, h[:, 0], ctx)
         c.update(state)
         x = x + o[:, None]
-        h = L.apply_norm(p.ln2, x)
-        return x + L.mlp_block(p.mlp, h, cfg.act)
+        h = L.apply_norm(p.ln2, x, ctx)
+        return x + L.mlp_block(p.mlp, h, cfg.act, ctx)
     if typ == "mlstm":
-        state, o = R.mlstm_block_step(p.lstm, c, h[:, 0], _mlstm_cfg(cfg))
+        state, o = R.mlstm_block_step(p.lstm, c, h[:, 0], _mlstm_cfg(cfg),
+                                      ctx)
     else:  # slstm
-        state, o = R.slstm_block_step(p.lstm, c, h[:, 0], _slstm_cfg(cfg))
+        state, o = R.slstm_block_step(p.lstm, c, h[:, 0], _slstm_cfg(cfg),
+                                      ctx)
     c.update(state)
     return x + o[:, None]
 
 
 @torch.no_grad()
-def decode_step(model: CausalLM, cache: Dict, tokens: torch.Tensor
-                ) -> Tuple[torch.Tensor, Dict]:
+def decode_step(model: CausalLM, cache: Dict, tokens: torch.Tensor,
+                ctx: Optional[ShardCtx] = None) -> Tuple[torch.Tensor, Dict]:
     """One decode step. tokens: (B, 1). Returns (logits (B,1,V), cache),
     the cache updated in place (pos + 1)."""
+    ctx = ctx or L.NO_MESH
     pos = cache["pos"]
-    x = _embed_tokens(model, tokens)
+    x = _embed_tokens(model, tokens, ctx)
     if model.pos_embed is not None:
         x = x + model.pos_embed[pos.long()][:, None].to(x.dtype)
     for layer, c in zip(model.layers, cache["layers"]):
-        x = _step_layer(layer, c, x, model.cfg, pos)
+        x = _step_layer(layer, c, x, model.cfg, pos, ctx)
     cache["pos"] = pos + 1
-    return unembed(model, x), cache
+    return unembed(model, x, ctx), cache
 
 
 # ---------------------------------------------------------------------------
@@ -851,13 +1213,17 @@ def decode_step(model: CausalLM, cache: Dict, tokens: torch.Tensor
 
 @torch.no_grad()
 def prefill(model: CausalLM, tokens: torch.Tensor, cache: Dict, *,
-            frames=None, patches=None) -> Tuple[torch.Tensor, Dict]:
+            frames=None, patches=None, ctx: Optional[ShardCtx] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     """Parallel prefill of ``tokens`` (B, S) [+ the frontend input, as
     ``forward``]; fills the cache in place and returns the last token's
     logits (B, 1, V) and the cache (pos = S)."""
-    x, positions, memory = _start(model, tokens, frames, patches)
+    ctx = ctx or L.NO_MESH
+    x, positions, memory = _start(model, tokens, frames, patches, ctx)
     for layer, c in zip(model.layers, cache["layers"]):
-        x, _ = _layer(layer, x, model.cfg, positions, memory, c)
+        x, _ = _layer(layer, x, model.cfg, positions, memory, c, ctx)
+        x = ctx.cs(x, ctx.dp, None, None)
     b, s = x.shape[:2]
-    cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    return unembed(model, x[:, -1:]), cache
+    pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
+    cache["pos"] = ctx.cs(ctx.const(pos), ctx.dp)
+    return unembed(model, x[:, -1:], ctx), cache

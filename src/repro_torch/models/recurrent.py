@@ -14,6 +14,10 @@ reference uses uncast in f32 (``rg_a`` and the sLSTM's ``r_*``) in f32.
 Two limits of the reference are kept and raise here instead of
 misbehaving: the mLSTM's parallel core needs S ≤ 256 or S % 256 == 0,
 and a prefill's conv tail needs S ≥ conv_width − 1.
+
+Each block takes a ``ShardCtx`` and lays out its activations where the
+reference does (``ctx.cs``); the tensors it makes are made on the mesh
+(``ctx.const``).  Without a mesh both are the identity.
 """
 from __future__ import annotations
 
@@ -25,12 +29,14 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
+    NO_MESH,
     gelu,
     sigmoid,
     silu,
     weight,
     zeros_f32,
 )
+from repro_torch.models.sharding import ShardCtx
 
 RG_C = 8.0  # Griffin's fixed recurrence sharpness
 F32 = torch.float32
@@ -100,11 +106,18 @@ class RGLRU(torch.nn.Module):
             (width,), dtype=dtype, device=device), requires_grad=False)
 
 
-def _rg_gates(p: RGLRU, u):
+def _mm(ctx: ShardCtx, x, w, contract=None, out=None):
+    """``x @ w``; on a mesh x's rows over the data axes, the contracted
+    dim over ``contract`` and w's columns over ``out`` (``ShardCtx.mm``)."""
+    return ctx.mm(x, w, (ctx.dp,) + (None,) * (x.dim() - 2) + (contract,),
+                  (contract, out))
+
+
+def _rg_gates(p: RGLRU, u, ctx: ShardCtx = NO_MESH):
     """u: (..., W) conv output → (a, gated_input) in f32."""
     dt = u.dtype
-    r = sigmoid(u @ p.rg_gr.to(dt)).to(F32)
-    i = sigmoid(u @ p.rg_gi.to(dt)).to(F32)
+    r = sigmoid(_mm(ctx, u, p.rg_gr.to(dt))).to(F32)
+    i = sigmoid(_mm(ctx, u, p.rg_gi.to(dt))).to(F32)
     softplus = torch.logaddexp(p.rg_a, torch.zeros_like(p.rg_a))
     a = torch.exp(-RG_C * softplus * r)
     mult = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
@@ -130,48 +143,49 @@ def rglru_parallel(p: RGLRU, u):
     return _linear_scan(a, bterm).to(u.dtype)
 
 
-def rglru_step(p: RGLRU, state_h, u_t):
+def rglru_step(p: RGLRU, state_h, u_t, ctx: ShardCtx = NO_MESH):
     """state_h: (B,W) f32; u_t: (B,W) → (new_h, out)."""
-    a, bterm = _rg_gates(p, u_t)
+    a, bterm = _rg_gates(p, u_t, ctx)
     h = a * state_h + bterm
     return h, h.to(u_t.dtype)
 
 
-def _rglru_seq(p: RGLRU, x):
+def _rglru_seq(p: RGLRU, x, ctx: ShardCtx = NO_MESH):
     """(out (B,S,D), pre-conv u (B,S,W), f32 states (B,S,W))."""
     dt = x.dtype
-    gate = gelu(x @ p.rg_gate.to(dt))
-    u_raw = x @ p.rg_in.to(dt)
+    gate = gelu(_mm(ctx, x, p.rg_gate.to(dt), out="model"))
+    u_raw = ctx.cs(_mm(ctx, x, p.rg_in.to(dt), out="model"), ctx.dp, None,
+                   "model")
     u = causal_conv1d(u_raw, p.conv_w, p.conv_b)
-    a, bterm = _rg_gates(p, u)
-    h_seq = _linear_scan(a, bterm)
-    out = (h_seq.to(dt) * gate) @ p.rg_out.to(dt)
-    return out, u_raw, h_seq
+    a, bterm = _rg_gates(p, u, ctx)
+    h_seq = ctx.alike(_linear_scan, a, bterm)
+    out = _mm(ctx, h_seq.to(dt) * gate, p.rg_out.to(dt), contract="model")
+    return ctx.cs(out, ctx.dp, None, None), u_raw, h_seq
 
 
-def rglru_block(p: RGLRU, x):
+def rglru_block(p: RGLRU, x, ctx: ShardCtx = NO_MESH):
     """Griffin recurrent block: gate branch ∥ (conv → RG-LRU), out proj."""
-    return _rglru_seq(p, x)[0]
+    return _rglru_seq(p, x, ctx)[0]
 
 
-def rglru_block_prefill(p: RGLRU, x):
+def rglru_block_prefill(p: RGLRU, x, ctx: ShardCtx = NO_MESH):
     """Parallel block pass that also returns the decode state: the last
     conv_width-1 *pre-conv* inputs and the final f32 h."""
-    out, u_raw, h_seq = _rglru_seq(p, x)
+    out, u_raw, h_seq = _rglru_seq(p, x, ctx)
     state = {"conv": _conv_tail(u_raw, p.conv_w.shape[0]).to(x.dtype),
              "h": h_seq[:, -1]}
     return out, state
 
 
-def rglru_block_step(p: RGLRU, state, x_t):
+def rglru_block_step(p: RGLRU, state, x_t, ctx: ShardCtx = NO_MESH):
     """x_t: (B, D); state: {"conv": (B,W-1,Wd), "h": (B,Wd) f32}."""
     dt = x_t.dtype
-    gate = gelu(x_t @ p.rg_gate.to(dt))
-    u = x_t @ p.rg_in.to(dt)
+    gate = gelu(_mm(ctx, x_t, p.rg_gate.to(dt), out="model"))
+    u = _mm(ctx, x_t, p.rg_in.to(dt), out="model")
     conv_state, u = conv1d_step(state["conv"], u, p.conv_w, p.conv_b)
-    h_f32, h = rglru_step(p, state["h"], u)
-    out = (h * gate) @ p.rg_out.to(dt)
-    return {"conv": conv_state, "h": h_f32}, out
+    h_f32, h = rglru_step(p, state["h"], u, ctx)
+    out = _mm(ctx, h * gate, p.rg_out.to(dt), contract="model")
+    return {"conv": conv_state, "h": h_f32}, ctx.cs(out, ctx.dp, None)
 
 
 def rglru_init_state(batch: int, width: int, conv_width: int = 4,
@@ -224,9 +238,17 @@ class MLstm(torch.nn.Module):
             (ud,), dtype=dtype, device=device), requires_grad=False)
 
 
-def _mlstm_parallel_core(q, k, v, i_raw, f_raw, chunk=256):
+def _mlstm_parallel_core(q, k, v, i_raw, f_raw, chunk=256,
+                         ctx: ShardCtx = NO_MESH):
     """q,k,v: (B,S,H,hd); i_raw,f_raw: (B,S,H). Returns (B,S,H,hd) in
-    q's dtype, in chunks of ``chunk`` query rows."""
+    q's dtype, in chunks of ``chunk`` query rows.  On a mesh each data
+    shard runs it on its own rows."""
+    if ctx.mesh is not None:
+        spec = (ctx.dp, None, None, None)
+        return ctx.local_map(
+            lambda *xs: (_mlstm_parallel_core(*xs, chunk=chunk),),
+            (q, k, v, i_raw, f_raw), [spec] * 5,
+            [ctx.placements(q.shape, spec)])[0]
     b, s, h, hd = q.shape
     if s > chunk and s % chunk:
         raise ValueError(
@@ -260,29 +282,45 @@ def _mlstm_parallel_core(q, k, v, i_raw, f_raw, chunk=256):
                       for p0 in range(0, s, chunk)], dim=1)
 
 
-def _mlstm_seq(p: MLstm, x, cfg: MLstmCfg):
+def _head_mm(ctx: ShardCtx, heads: int):
+    """``a @ w`` for the mLSTM's per-head projections: ``@`` without a
+    mesh; on one, w's output columns over "model" only where the heads
+    divide by it (the outputs are then split into heads), else
+    replicated."""
+    if ctx.mesh is None:
+        return lambda a, w: a @ w
+    ax = "model" if heads % ctx.axis_size("model") == 0 else None
+    return lambda a, w: ctx.mm(a, w, (ctx.dp,) + (None,) * (a.dim() - 1),
+                               (None, ax))
+
+
+def _mlstm_seq(p: MLstm, x, cfg: MLstmCfg, ctx: ShardCtx = NO_MESH):
     """(out, pre-conv a, k, v, i_raw f32, f_raw f32) of the parallel pass."""
     dt = x.dtype
     b, s, _d = x.shape
     ud, h, hd = cfg.inner, cfg.num_heads, cfg.head_dim
-    up = x @ p.lstm_up.to(dt)  # (B,S,2*ud)
+    up = ctx.cs(_mm(ctx, x, p.lstm_up.to(dt)), ctx.dp, None,
+                "model")  # (B,S,2*ud)
+    proj = _head_mm(ctx, h)
     a_raw, gate = up[..., :ud], up[..., ud:]
     a = silu(causal_conv1d(a_raw, p.conv_w, p.conv_b))
-    q = (a @ p.lstm_q.to(dt)).reshape(b, s, h, hd)
-    k = (a @ p.lstm_k.to(dt)).reshape(b, s, h, hd)
-    v = (a @ p.lstm_v.to(dt)).reshape(b, s, h, hd)
-    i_raw = (a @ p.lstm_i.to(dt)).to(F32)  # (B,S,H)
-    f_raw = (a @ p.lstm_f.to(dt)).to(F32)
-    o = _mlstm_parallel_core(q, k, v, i_raw, f_raw)
-    out = (o.reshape(b, s, ud) * silu(gate)) @ p.lstm_down.to(dt)
-    return out, a_raw, k, v, i_raw, f_raw
+    q = proj(a, p.lstm_q.to(dt)).reshape(b, s, h, hd)
+    k = proj(a, p.lstm_k.to(dt)).reshape(b, s, h, hd)
+    v = proj(a, p.lstm_v.to(dt)).reshape(b, s, h, hd)
+    i_raw = proj(a, p.lstm_i.to(dt)).to(F32)  # (B,S,H)
+    f_raw = proj(a, p.lstm_f.to(dt)).to(F32)
+    o = _mlstm_parallel_core(q, k, v, i_raw, f_raw, ctx=ctx)
+    o = ctx.cs(o.reshape(b, s, ud), ctx.dp, None, None)  # heads whole
+    out = _mm(ctx, o * silu(gate), p.lstm_down.to(dt))
+    return ctx.cs(out, ctx.dp, None, None), a_raw, k, v, i_raw, f_raw
 
 
-def mlstm_block(p: MLstm, x, cfg: MLstmCfg):
-    return _mlstm_seq(p, x, cfg)[0]
+def mlstm_block(p: MLstm, x, cfg: MLstmCfg, ctx: ShardCtx = NO_MESH):
+    return _mlstm_seq(p, x, cfg, ctx)[0]
 
 
-def mlstm_block_prefill(p: MLstm, x, cfg: MLstmCfg):
+def mlstm_block_prefill(p: MLstm, x, cfg: MLstmCfg,
+                        ctx: ShardCtx = NO_MESH):
     """Parallel block pass that also returns the decode state (C, n, m).
 
     The closed form of the stabilized recurrence after S steps:
@@ -291,8 +329,14 @@ def mlstm_block_prefill(p: MLstm, x, cfg: MLstmCfg):
       n_S = Σ_t exp(i_t + F_S − F_t − m_S) · k_t
     which matches unrolling mlstm_block_step.
     """
-    out, a_raw, k, v, i_raw, f_raw = _mlstm_seq(p, x, cfg)
+    out, a_raw, k, v, i_raw, f_raw = _mlstm_seq(p, x, cfg, ctx)
     conv = _conv_tail(a_raw, cfg.conv_width)
+    c_s, n_s, m_s = ctx.per_shard(_mlstm_state, k, v, i_raw, f_raw)
+    return out, {"conv": conv, "C": c_s, "n": n_s, "m": m_s}
+
+
+def _mlstm_state(k, v, i_raw, f_raw):
+    """The closed-form state (C, n, m) after S steps (rows independent)."""
     cumf = torch.cumsum(F.logsigmoid(f_raw), dim=1)
     w = i_raw + (cumf[:, -1:, :] - cumf)  # (B,S,H)
     m_s = w.amax(dim=1)  # (B,H)
@@ -300,7 +344,7 @@ def mlstm_block_prefill(p: MLstm, x, cfg: MLstmCfg):
     kf, vf = k.to(F32), v.to(F32)
     c_s = torch.einsum("bshv,bshk->bhvk", ew[..., None] * vf, kf)
     n_s = torch.einsum("bsh,bshk->bhk", ew, kf)
-    return out, {"conv": conv, "C": c_s, "n": n_s, "m": m_s}
+    return c_s, n_s, m_s
 
 
 def mlstm_init_state(batch: int, cfg: MLstmCfg, dtype=COMPUTE_DTYPE,
@@ -315,34 +359,45 @@ def mlstm_init_state(batch: int, cfg: MLstmCfg, dtype=COMPUTE_DTYPE,
     }
 
 
-def mlstm_block_step(p: MLstm, state, x_t, cfg: MLstmCfg):
-    dt = x_t.dtype
-    b = x_t.shape[0]
-    ud, h, hd = cfg.inner, cfg.num_heads, cfg.head_dim
-    up = x_t @ p.lstm_up.to(dt)
-    a, gate = up[..., :ud], up[..., ud:]
-    conv_state, a = conv1d_step(state["conv"], a, p.conv_w, p.conv_b)
-    a = silu(a)
-    q = (a @ p.lstm_q.to(dt)).reshape(b, h, hd).to(F32)
-    k = (a @ p.lstm_k.to(dt)).reshape(b, h, hd).to(F32)
-    v = (a @ p.lstm_v.to(dt)).reshape(b, h, hd).to(F32)
-    i_raw = (a @ p.lstm_i.to(dt)).to(F32)  # (B,H)
-    f_raw = (a @ p.lstm_f.to(dt)).to(F32)
+def _mlstm_cell(q, k, v, i_raw, f_raw, c, n, m):
+    """One step of the stabilised matrix memory (rows independent):
+    (C, n, m, the read-out (B,H,hd) f32)."""
     logf = F.logsigmoid(f_raw)
-    m_new = torch.maximum(logf + state["m"], i_raw)
+    m_new = torch.maximum(logf + m, i_raw)
     i_s = torch.exp(i_raw - m_new)[..., None]  # (B,H,1)
-    f_s = torch.exp(logf + state["m"] - m_new)[..., None]
-    scale = float(1.0 / np.sqrt(hd))
-    c_new = f_s[..., None] * state["C"] + i_s[..., None] * (
+    f_s = torch.exp(logf + m - m_new)[..., None]
+    scale = float(1.0 / np.sqrt(q.shape[-1]))
+    c_new = f_s[..., None] * c + i_s[..., None] * (
         v[..., :, None] * k[..., None, :])  # (B,H,hd,hd) outer product v kᵀ
-    n_new = f_s * state["n"] + i_s * k
+    n_new = f_s * n + i_s * k
     qs = q * scale
     num = torch.einsum("bhvk,bhk->bhv", c_new, qs)
     den = torch.maximum(torch.einsum("bhk,bhk->bh", n_new, qs).abs(),
                         torch.exp(-m_new))
-    o = (num / den[..., None]).reshape(b, ud).to(dt)
+    return c_new, n_new, m_new, num / den[..., None]
+
+
+def mlstm_block_step(p: MLstm, state, x_t, cfg: MLstmCfg,
+                     ctx: ShardCtx = NO_MESH):
+    dt = x_t.dtype
+    b = x_t.shape[0]
+    ud, h, hd = cfg.inner, cfg.num_heads, cfg.head_dim
+    up = _mm(ctx, x_t, p.lstm_up.to(dt))
+    a, gate = up[..., :ud], up[..., ud:]
+    conv_state, a = conv1d_step(state["conv"], a, p.conv_w, p.conv_b)
+    a = silu(a)
+    proj = _head_mm(ctx, h)
+    q = proj(a, p.lstm_q.to(dt)).reshape(b, h, hd).to(F32)
+    k = proj(a, p.lstm_k.to(dt)).reshape(b, h, hd).to(F32)
+    v = proj(a, p.lstm_v.to(dt)).reshape(b, h, hd).to(F32)
+    i_raw = proj(a, p.lstm_i.to(dt)).to(F32)  # (B,H)
+    f_raw = proj(a, p.lstm_f.to(dt)).to(F32)
+    c_new, n_new, m_new, o = ctx.per_shard(
+        _mlstm_cell, q, k, v, i_raw, f_raw, state["C"], state["n"],
+        state["m"])
+    o = o.reshape(b, ud).to(dt)
     o = o * silu(gate)
-    out = o @ p.lstm_down.to(dt)
+    out = ctx.cs(_mm(ctx, o, p.lstm_down.to(dt)), ctx.dp, None)
     return {"conv": conv_state, "C": c_new, "n": n_new, "m": m_new}, out
 
 
@@ -407,33 +462,84 @@ def _slstm_cell(p: SLstm, state, zx, ix, fx, ox):
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
-def _slstm_gates(p: SLstm, x):
+def _slstm_gates(p: SLstm, x, ctx: ShardCtx = NO_MESH):
     dt = x.dtype
-    return tuple((x @ w.to(dt)).to(F32)
+    return tuple(_mm(ctx, x, w.to(dt), out="model").to(F32)
                  for w in (p.lstm_z, p.lstm_i, p.lstm_f, p.lstm_o))
 
 
-def slstm_block_prefill(p: SLstm, x, cfg: SLstmCfg):
+def slstm_block_prefill(p: SLstm, x, cfg: SLstmCfg,
+                        ctx: ShardCtx = NO_MESH):
     """Sequential block pass that also returns the final decode state."""
     dt = x.dtype
-    zx, ix, fx, ox = _slstm_gates(p, x)
-    state = slstm_init_state(x.shape[0], cfg, device=x.device)
+    gates = _slstm_gates(p, x, ctx)
+    if ctx.mesh is None:
+        hs, state = _slstm_scan(p, *gates, cfg)
+    else:  # the rows are independent: each data shard scans its own
+        rows = (ctx.dp, None, None)
+        keys = ("c", "n", "h", "m")
+
+        def scan(zx, ix, fx, ox, *r):
+            hs, state = _slstm_scan(SLstmRecurrent(*r), zx, ix, fx, ox, cfg)
+            return (hs, *(state[k] for k in keys))
+
+        b, s, u = gates[0].shape
+        outs = ctx.local_map(
+            scan, (*gates, p.r_z, p.r_i, p.r_f, p.r_o),
+            [rows] * 4 + [(None,)] * 4,
+            [ctx.placements((b, s, u), rows)]
+            + [ctx.placements((b, u), rows)] * 4)
+        hs, state = outs[0], dict(zip(keys, outs[1:]))
+    h = hs.to(dt)  # (B,S,ud)
+    return ctx.cs(_mm(ctx, h, p.lstm_down.to(dt)), ctx.dp, None,
+                  None), state
+
+
+@dataclasses.dataclass
+class SLstmRecurrent:
+    """The sLSTM's diagonal recurrent weights alone (``_slstm_cell``'s
+    view of a layer, for a scan on local tensors)."""
+    r_z: torch.Tensor
+    r_i: torch.Tensor
+    r_f: torch.Tensor
+    r_o: torch.Tensor
+
+
+def _slstm_scan(p, zx, ix, fx, ox, cfg: SLstmCfg):
+    """The sequential sLSTM over S from the zero state: (h (B,S,ud) f32,
+    the final state)."""
+    state = slstm_init_state(zx.shape[0], cfg, device=zx.device)
     hs = []
-    for t in range(x.shape[1]):
+    for t in range(zx.shape[1]):
         state = _slstm_cell(p, state, zx[:, t], ix[:, t], fx[:, t],
                             ox[:, t])
         hs.append(state["h"])
-    h = torch.stack(hs, dim=1).to(dt)  # (B,S,ud)
-    return h @ p.lstm_down.to(dt), state
+    return torch.stack(hs, dim=1), state
 
 
-def slstm_block(p: SLstm, x, cfg: SLstmCfg):
+def slstm_block(p: SLstm, x, cfg: SLstmCfg, ctx: ShardCtx = NO_MESH):
     """x: (B,S,D) → a sequential loop over S (inherently serial)."""
-    return slstm_block_prefill(p, x, cfg)[0]
+    return slstm_block_prefill(p, x, cfg, ctx)[0]
 
 
-def slstm_block_step(p: SLstm, state, x_t, cfg: SLstmCfg):
+def slstm_block_step(p: SLstm, state, x_t, cfg: SLstmCfg,
+                     ctx: ShardCtx = NO_MESH):
     dt = x_t.dtype
-    new_state = _slstm_cell(p, state, *_slstm_gates(p, x_t))
-    out = new_state["h"].to(dt) @ p.lstm_down.to(dt)
-    return new_state, out
+    gates = _slstm_gates(p, x_t, ctx)
+    if ctx.mesh is None:
+        new_state = _slstm_cell(p, state, *gates)
+    else:  # rows independent: each data shard steps its own
+        keys = ("c", "n", "h", "m")
+        rows = (ctx.dp, None)
+
+        def cell(*xs):
+            st = _slstm_cell(SLstmRecurrent(*xs[8:]), dict(zip(keys, xs[:4])),
+                             *xs[4:8])
+            return tuple(st[k] for k in keys)
+
+        lay = ctx.placements(gates[0].shape, rows)
+        new_state = dict(zip(keys, ctx.local_map(
+            cell, (*(state[k] for k in keys), *gates, p.r_z, p.r_i, p.r_f,
+                   p.r_o), [rows] * 8 + [(None,)] * 4, [lay] * 4)))
+    out = _mm(ctx, new_state["h"].to(dt), p.lstm_down.to(dt))
+    return new_state, ctx.cs(out, ctx.dp, None)

@@ -47,9 +47,12 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled by min(1, max_norm / norm), in their dtypes; norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """(grads scaled by min(1, max_norm / norm), in their dtypes; norm);
+    ``norm`` is ``global_norm(grads)`` unless given (a caller holding
+    only blocks of the gradients passes the norm of the whole)."""
+    if norm is None:
+        norm = global_norm(grads)
     limit = torch.tensor(max_norm, dtype=F32, device=norm.device)
     scale = torch.clamp(limit / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), norm

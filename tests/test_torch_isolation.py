@@ -4,7 +4,9 @@ neither ``jax`` (nor ``jaxlib`` or ``ml_dtypes``) nor the JAX package
 them blocked (stores written and read, one on ``tiered:remote``; a smoke
 LM served, and a recurrent and an encoder-decoder smoke LM prefilled and
 stepped; the video service answering one read; two train steps of a
-smoke LM and a checkpoint of its state saved and restored), and without
+smoke LM and a checkpoint of its state saved and restored; a sharded
+step on a (1, 1) gloo mesh and a decode step traced on a fake (2, 2)
+mesh), and without
 a card the default device raises instead of running on the CPU."""
 import ast
 import os
@@ -154,6 +156,24 @@ def test_package_works_with_jax_and_reference_blocked(tmp_path):
             b = b if isinstance(b, torch.Tensor) else torch.from_numpy(b)
             assert a.dtype == b.dtype and torch.equal(a, b)
         ck.close()
+        # the launch layer: a sharded step on a (1, 1) gloo mesh, and a
+        # decode step traced on a fake (2, 2) mesh under the op counter
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import (
+            fake_group, host_group, make_host_mesh, make_mesh)
+        from repro_torch.launch.specs import distribute_state, full_state
+        from repro_torch.models.sharding import ShardCtx
+        with host_group("cpu"):
+            mesh = make_host_mesh("cpu")
+            state = init_train_state(0, cfg, hyper, device="cpu")
+            sharded = make_train_step(cfg, hyper, ShardCtx(mesh))
+            new, _m = sharded(distribute_state(state, mesh), batch)
+            assert int(full_state(new)["step"]) == 1
+        with fake_group(4):
+            rec = dryrun.trace(cfg, ShapeSpec("d", 16, 4, "decode"),
+                               make_mesh((2, 2), device_type="cpu"))
+            assert rec["roofline"]["ici_bytes_per_chip"] > 0
         assert not any(k.split(".")[0] in ("jax", "jaxlib", "repro",
                                            "ml_dtypes")
                        for k, v in sys.modules.items() if v is not None)
@@ -208,4 +228,33 @@ def test_training_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(cfg, hyper, pipeline=None, ckpt=ck)
     Trainer(cfg, hyper, pipeline=None, ckpt=ck, device="cpu")
+    # a mesh is on the card unless the caller asks for the host, and a
+    # trainer never moves to its mesh's device on its own
+    from repro_torch.launch.mesh import (
+        fake_group, host_group, make_mesh, make_production_mesh)
+    with fake_group(256):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_production_mesh()
+    with host_group("cpu"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_mesh((1, 1))
+        mesh = make_mesh((1, 1), device_type="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(cfg, hyper, pipeline=None, ckpt=ck, mesh=mesh)
+        with pytest.raises(ValueError, match="'meta'"):
+            Trainer(cfg, hyper, pipeline=None, ckpt=ck, mesh=mesh,
+                    device="meta")
+        t = Trainer(cfg, hyper, pipeline=None, ckpt=ck, device="meta")
+        with pytest.raises(ValueError, match="'meta'"):
+            t.resume(mesh=mesh)
+        assert t.mesh is None
+        Trainer(cfg, hyper, pipeline=None, ckpt=ck, mesh=mesh, device="cpu")
+        # nor is a state copied onto a mesh of another device
+        from repro_torch.launch.mesh import _mesh
+        from repro_torch.launch.specs import distribute_state
+        state = init_train_state(0, cfg, hyper, device="cpu")
+        with pytest.raises(ValueError, match="'cpu' given to a mesh on"
+                           " 'meta'"):
+            distribute_state(state, _mesh("meta", (1, 1),
+                                          ("data", "model")))
     ck.close()

@@ -235,15 +235,25 @@ def test_tree_to_frames_roundtrip():
 
 # -- the port's own refusals --------------------------------------------------
 
-def test_trainer_refuses_a_mesh(tmp_path, corpus):
+def test_trainer_takes_a_mesh(tmp_path, corpus):
+    """A ``DeviceMesh`` is taken (a (1, 1) gloo mesh steps); anything else
+    given as a mesh raises ``TypeError``, at construction and at
+    ``resume``."""
+    from repro_torch.launch.mesh import host_group, make_host_mesh
+
     vss, n, _ = corpus
     ck = CheckpointManager(str(tmp_path / "ck"), device="cpu")
     pipe = TokenPipeline(vss, "corpus", n, batch=2, seq=8)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(CFG, HYPER, pipe, ck, mesh=object(), device="cpu")
     t = Trainer(CFG, HYPER, pipe, ck, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         t.resume(mesh=object())
+    with host_group("cpu"):
+        t = Trainer(CFG, HYPER, pipe, ck, mesh=make_host_mesh("cpu"),
+                    device="cpu").init()
+        t.train(2)
+        assert t.step == 2 and t.state["step"].full_tensor().item() == 2
     pipe.close()
     ck.close()
 
