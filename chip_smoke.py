@@ -14,7 +14,9 @@ and PyTorch built for CUDA.  In order it:
    rounds every finite f32 residual as the plain versions' r / q does;
    then holds each CUDA kernel against its plain PyTorch version on the
    card, at a 1080p 30-frame GOP and at a ragged shape, for every codec
-   tier and transcode combination, and the joint path's warp and
+   tier and transcode combination (the delta kernels also at the sub-GOP
+   phase's tiles, (30, 3, 360, 640) and (30, 3, 270, 274), and its
+   (3, 3, 1080, 1920) prefix), and the joint path's warp and
    histogram at 1080p (a projective homography, one whose Z crosses 0,
    a 30-frame GOP), at ragged shapes and at the seams of their designs
    (output widths 1 to 1919, sources off 16-byte boundaries, rows outside
@@ -37,7 +39,28 @@ and PyTorch built for CUDA.  In order it:
    Each of those seven paths runs with the launch counts set to 0 just
    before it and read just after, and in the CUDA run each must have
    launched exactly the kernels its plan needs;
-5. drives the rest of the storage layer under ``VSS`` (the backends
+5. drives sub-GOP ranged reads and the tiled ROI layout (the sub-GOP
+   phase), in fresh ``local`` stores on ``"cuda"`` and then on ``"cpu"``:
+   step 4's clip written as ``hevc`` in 30-frame GOPs untiled, on a (3,
+   3) tile grid (fig28's) and on a (4, 7) grid (tiles 274 and 275 wide),
+   and a seeded 3840x2160 30-frame clip on (3, 3); 3-frame reads at the
+   start of GOPs 0 and 1 (each one ranged prefix fetch), a 23-frame trim
+   past ``RANGED_HI_FRACTION`` (the whole object), and on each tiled
+   video ROI reads inside one tile, across 2x2 tiles, of the whole
+   frame, across at half resolution and across over 0.5 s (across the
+   first GOP boundary where there are two), then a
+   ``read_batch`` of three overlapping ROI specs, all past the cache.
+   Every read's frames, every stored object, the ranged and tile
+   counters, the launches and the delta kernels' shapes must equal the
+   CPU run's; each read must equal the same cut of a whole-frame decode
+   of its clip; each write must launch ``delta_encode`` once a tile a
+   GOP and each read ``delta_decode`` once a covering tile a GOP (once on
+   a 3-frame prefix for a ranged read), the batch each covering tile
+   once; two planted faults (the stitched tiles one column off, a prefix
+   one frame short) must fail that check.  It prints each step's
+   launches, kernel shapes, counters and times, and the same ROI on the
+   tiled and the untiled video;
+6. drives the rest of the storage layer under ``VSS`` (the backends
    phase): the main path's clip and a second one (seed 1), 6 GOPs, are
    written as ``hevc`` with two ingest workers and read back (whole
    clips and ``t=(0.5, 1.7)``, past the cache) in a ``local`` store and
@@ -54,7 +77,7 @@ and PyTorch built for CUDA.  In order it:
    path, and every write and read must launch what the local store's
    did; ``ops.psnr`` of each store's whole read runs ``mse``.  It
    prints every step's time and launches;
-6. drives the video service (the video service phase): a ``local``
+7. drives the video service (the video service phase): a ``local``
    store on the card holding both clips of step 5 as ``hevc``, and a
    ``VSSService`` on port 0 with the default intake window and batch
    and an admission byte cap set to hold the phase's parked results
@@ -75,7 +98,7 @@ and PyTorch built for CUDA.  In order it:
    ``delta_encode`` and call no plain version.  It repeats the burst
    with ``window_s=0, max_batch=1`` (coalescing off) and prints both
    bursts' wall time, requests/s and client times to manifest;
-7. drives joint compression (§5.1) in a fresh store, on ``"cuda"`` and
+8. drives joint compression (§5.1) in a fresh store, on ``"cuda"`` and
    then on ``"cpu"``: writes two 1080p 30-frame camera pairs as hevc,
    ``apply_joint_compression`` over pair A (side by side: joined) and
    pair B (with perspective: aborted, as the reference does), then reads
@@ -85,7 +108,7 @@ and PyTorch built for CUDA.  In order it:
    plain versions; pair A's sides must read back at 24 dB or more.  It
    prints each step's time and the compress steps' split (decode, host
    features, warp, histogram, segment encode);
-8. holds the serving path's kernels against their plain versions on the
+9. holds the serving path's kernels against their plain versions on the
    card: the paged decode attention at Qwen3-32B's decode shape (8
    sequences of 1 to 4096 tokens, 64 query and 8 KV heads of 128, pages
    of 16) in bf16 and f32, at Phi-3-mini's (32 and 32 heads of 96) and
@@ -110,7 +133,7 @@ and PyTorch built for CUDA.  In order it:
    ``library_ms``).  ``ops.psnr`` of the main path's whole-clip read
    against its source must agree with its plain version and with
    ``exact_mse`` frame by frame;
-9. drives the serving engine (``ServingEngine``, a paged KV pool of 1024
+10. drives the serving engine (``ServingEngine``, a paged KV pool of 1024
    pages of 16 tokens) over a Qwen3-32B-width model cut to 16 of its 64
    layers, with random weights drawn on the card from seed 0: seven
    prompts of 128 to 1024 tokens (two share their first 512), 32 new
@@ -121,7 +144,7 @@ and PyTorch built for CUDA.  In order it:
    must be what the pool's page arithmetic predicts; the paged attention
    must launch once per layer and decode round; it prints prefill time
    per request, time to first token, and decode-round times;
-10. drives the six other families on the dense-cache serving path (the
+11. drives the six other families on the dense-cache serving path (the
    non-dense phase): deepseek-moe-16b, recurrentgemma-2b, xlstm-1.3b,
    whisper-large-v3 and llama-3.2-vision-11b at full width and depth,
    llama4-scout-17b-a16e at full width cut to 8 of 48 layers, each with
@@ -142,7 +165,7 @@ and PyTorch built for CUDA.  In order it:
    phase must launch none of the hand-written kernels.  It prints the
    weights' GB, init, prefill and median decode-step times, tokens/s
    and the peak memory per family;
-11. trains the LM (the training phase): (a) phi3-mini-3.8b at its
+12. trains the LM (the training phase): (a) phi3-mini-3.8b at its
    published widths cut to 8 of 32 layers (1.104 B parameters), f32
    masters drawn on the card from seed 0, 8 steps of ``make_grad_step``
    and ``apply_grads`` (two microbatches, warmup 2, cosine over 8) on
@@ -164,7 +187,7 @@ and PyTorch built for CUDA.  In order it:
    ``CUBLAS_WORKSPACE_CONFIG`` set): the parameters equal an unbroken
    run's bit for bit; (d) the phase runs none of the
    hand-written kernels and none of their plain versions;
-12. runs the launch phase (meshes, shardings, the sharded train step):
+13. runs the launch phase (meshes, shardings, the sharded train step):
    (a) the dry run on the host, in a process of its own
    (``chip_smoke.py --dryrun``: torch's fake process group at 256 and
    512 ranks, tensors on the meta device) for qwen3-32b × train_4k and ×
@@ -187,7 +210,7 @@ and PyTorch built for CUDA.  In order it:
    for bit with the unsharded resume; each child prints its kernel
    counts, and no hand-written kernel and no plain version may run in
    the phase;
-13. prints one JSON line of per-kernel numbers, the card line, and the
+14. prints one JSON line of per-kernel numbers, the card line, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed phase raises, and the script exits non-zero without the
@@ -231,7 +254,9 @@ from repro_torch.core.config import (  # noqa: E402
 )
 from repro_torch.core.deferred import is_wrapped, unwrap_bytes  # noqa: E402
 from repro_torch.core.quality import exact_mse, exact_psnr  # noqa: E402
-from repro_torch.core.store import VSS  # noqa: E402
+from repro_torch.core.spec import ReadSpec, WriteSpec  # noqa: E402
+from repro_torch.core.store import VSS, resample  # noqa: E402
+from repro_torch.core.types import tile_keys  # noqa: E402
 from repro_torch.data.tokens import (  # noqa: E402
     TokenPipeline,
     write_token_corpus,
@@ -683,6 +708,46 @@ def check_one_kernel_a_call(fn, name: str) -> None:
                              f" the device, not one {name} kernel")
 
 
+def hold_delta(frames: torch.Tensor, label: str, reps=None):
+    """Hold both delta kernels against their plain versions on
+    ``frames`` (T, C, H, W) f32 for every tier, exactly.  Returns the
+    largest difference per kernel and, with ``reps``, each kernel's
+    numbers at hevc's tier (q = 2, int8 residuals): its time and its
+    plain version's beside its bound."""
+    t, c, h, w = frames.shape
+    errs = {"delta_encode": 0.0, "delta_decode": 0.0}
+    timed = None
+    for q, lo, hi, rdt in TIERS:
+        kw = dict(q=q, lo=lo, hi=hi, vmin=0.0, vmax=255.0)
+        ik, rk = ops.delta_encode(frames, resid_dtype=rdt, **kw)
+        ip, rp = ref.delta_encode(frames, **kw)
+        rp = rp.to(rdt)
+        what = f"{label} {tuple(frames.shape)} q={q:g} {rdt}"
+        errs["delta_encode"] = max(errs["delta_encode"], _exact(
+            "delta_encode", what, [(ik, ip), (rk, rp)]))
+        dkw = dict(q=q, vmin=0.0, vmax=255.0)
+        errs["delta_decode"] = max(errs["delta_decode"], _exact(
+            "delta_decode", what, [(ops.delta_decode(ip, rp, **dkw),
+                                    ref.delta_decode(ip, rp, **dkw))]))
+        if reps is None or q != 2.0:
+            continue
+        rb = rk.element_size()
+        timed = {"delta_encode": dict(
+            ms=time_ms(lambda: ops.delta_encode(
+                frames, resid_dtype=rdt, **kw), reps),
+            plain_ms=time_ms(lambda: ref.delta_encode(frames, **kw), reps),
+            shape=[t, c, h, w], dtype=str(rdt)), "delta_decode": dict(
+            ms=time_ms(lambda: ops.delta_decode(ip, rp, **dkw), reps),
+            plain_ms=time_ms(
+                lambda: ref.delta_decode(ip, rp, **dkw), reps),
+            shape=[t, c, h, w], dtype=str(rdt))}
+        (timed["delta_encode"]["bound_ms"],
+         timed["delta_encode"]["bound_by"]) = encode_bound(t, c, h, w, rb)
+        (timed["delta_decode"]["bound_ms"],
+         timed["delta_decode"]["bound_by"]) = decode_bound(t, c, h, w, rb)
+    return errs, timed
+
+
 def check_kernels(device: str, shapes, reps: int, seed: int = 0):
     """Hold every kernel against its plain version at each shape; time
     both at the main path's shapes.  Returns per-kernel numbers."""
@@ -693,40 +758,10 @@ def check_kernels(device: str, shapes, reps: int, seed: int = 0):
             rng.integers(0, 256, (t, c, h, w), dtype=np.uint8)
         ).to(device).to(torch.float32)
         main = label == "1080p"
-        for q, lo, hi, rdt in TIERS:
-            kw = dict(q=q, lo=lo, hi=hi, vmin=0.0, vmax=255.0)
-            ik, rk = ops.delta_encode(frames, resid_dtype=rdt, **kw)
-            ip, rp = ref.delta_encode(frames, **kw)
-            rp = rp.to(rdt)
-            what = f"{label} {tuple(frames.shape)} q={q:g} {rdt}"
-            res["delta_encode"]["max_abs_err"] = max(
-                res["delta_encode"]["max_abs_err"],
-                _exact("delta_encode", what, [(ik, ip), (rk, rp)]))
-            dkw = dict(q=q, vmin=0.0, vmax=255.0)
-            dk = ops.delta_decode(ip, rp, **dkw)
-            dp = ref.delta_decode(ip, rp, **dkw)
-            res["delta_decode"]["max_abs_err"] = max(
-                res["delta_decode"]["max_abs_err"],
-                _exact("delta_decode", what, [(dk, dp)]))
-            if main and q == 2.0:
-                rb = rk.element_size()
-                res["delta_encode"].update(
-                    ms=time_ms(lambda: ops.delta_encode(
-                        frames, resid_dtype=rdt, **kw), reps),
-                    plain_ms=time_ms(
-                        lambda: ref.delta_encode(frames, **kw), reps),
-                    shape=list(frames.shape), dtype=str(rdt))
-                res["delta_encode"]["bound_ms"], \
-                    res["delta_encode"]["bound_by"] = encode_bound(
-                        t, c, h, w, rb)
-                res["delta_decode"].update(
-                    ms=time_ms(lambda: ops.delta_decode(ip, rp, **dkw), reps),
-                    plain_ms=time_ms(
-                        lambda: ref.delta_decode(ip, rp, **dkw), reps),
-                    shape=list(dk.shape), dtype=str(rdt))
-                res["delta_decode"]["bound_ms"], \
-                    res["delta_decode"]["bound_by"] = decode_bound(
-                        t, c, h, w, rb)
+        errs, timed = hold_delta(frames, label, reps if main else None)
+        for name, err in errs.items():
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+            res[name].update(timed[name] if timed else {})
         del frames
         for f in FACTORS:
             # at the ragged shape the OUTPUT is ragged: the input is f
@@ -764,6 +799,29 @@ def check_kernels(device: str, shapes, reps: int, seed: int = 0):
                             rok.element_size())
             del src
     return res
+
+
+# the delta kernels' shapes on the sub-GOP phase's path: a 30-frame tile
+# of fig28's (3, 3) grid at 1080p, one of the (4, 7) grid (274 columns, no
+# multiple of 4) and a 3-frame prefix of a 1080p GOP
+SUBGOP_KERNEL_SHAPES = (("3x3 tile", (30, 3, 360, 640)),
+                        ("4x7 tile", (30, 3, 270, 274)),
+                        ("3-frame prefix", (3, 3, 1080, 1920)))
+
+
+def check_subgop_kernels(device: str, reps: int, seed: int = 1):
+    """`hold_delta` at each of `SUBGOP_KERNEL_SHAPES`.  Returns {label:
+    {kernel: numbers}} and the largest difference seen."""
+    rng = np.random.default_rng(seed)
+    out, worst = {}, 0.0
+    for label, shape in SUBGOP_KERNEL_SHAPES:
+        frames = torch.from_numpy(
+            rng.integers(0, 256, shape, dtype=np.uint8)
+        ).to(device).to(torch.float32)
+        errs, out[label] = hold_delta(frames, label, reps)
+        worst = max(worst, *errs.values())
+        del frames
+    return out, worst
 
 
 class _Steps:
@@ -816,6 +874,12 @@ def reads_for(clip: np.ndarray):
     )
 
 
+def _plan_codecs(plan) -> set:
+    """The codecs of the physical videos a read's plan reads from."""
+    return {plan.runs[plan.run_idx(i)].physical.codec
+            for i in range(len(plan.segments))}
+
+
 def drive_store(root: str, clip: np.ndarray, device: str):
     """The storage manager's main path on ``device``: one write, a
     transcode of the first stored GOP, and five reads.  Each path runs
@@ -845,10 +909,7 @@ def drive_store(root: str, clip: np.ndarray, device: str):
         blobs = ([codec.serialize_gop(e) for e in r.encoded]
                  if r.encoded is not None else None)
         out["reads"][name] = (frames, blobs)
-        plan = r.plan
-        out["sources"][name] = {
-            plan.runs[plan.run_idx(i)].physical.codec
-            for i in range(len(plan.segments))}
+        out["sources"][name] = _plan_codecs(r.plan)
         # the store's own trace of this read: plan, fetch, decode, admit
         spans = vss.recent_traces(1)[0].get("children", [])
         out["spans"][name] = {sp["name"]: sp["dur_s"] for sp in spans}
@@ -920,6 +981,454 @@ def compare_runs(gpu, cpu, clip: np.ndarray) -> None:
     print(f"  transcode_gop -> {hdr[0]} {hdr[1]}: blob equal on cuda and cpu")
 
 
+# -- the sub-GOP phase: ranged prefix reads and the tiled ROI layout ------
+
+SUBGOP_GOP = 30  # frames a GOP, as fig28 writes them
+SUBGOP_TRIM = 3  # frames of a ranged prefix read
+# Table 1's 4K camera class: frames, H, W.  One GOP: at 60 frames the
+# phase took 138 s on the card (44.7 s its card run, 74.8 s its CPU run),
+# over its two-minute share of the script
+SUBGOP_UHD = (30, 2160, 3840)
+# (video, clip, tile grid): the untiled clip; fig28's (3, 3) grid; a
+# (4, 7) grid, whose tile widths (274, 275 at 1080p) are no multiple of 4;
+# the 4K clip at (3, 3)
+SUBGOP_VIDEOS = (("flat", "1080p", None), ("t3x3", "1080p", (3, 3)),
+                 ("t4x7", "1080p", (4, 7)), ("uhd_t3x3", "4k", (3, 3)))
+SUBGOP_COUNTERS = {"ranged": "vss_read_ranged_fetches_total",
+                   "saved": "vss_read_ranged_bytes_saved_total",
+                   "tile_fetches": "vss_tile_fetches_total",
+                   "tile_reads": "vss_tile_reads_total"}
+# RANGED_HI_FRACTION = 0.75 of a 30-frame GOP is 22.5 frames: 23 are past it
+SUBGOP_PAST_FRACTION = 23
+
+
+def subgop_window(n_frames: int):
+    """0.5 s across the first GOP boundary, or in the middle of a clip of
+    one GOP."""
+    return (0.8, 1.3) if n_frames >= 2 * SUBGOP_GOP else (0.25, 0.75)
+
+
+def _bands(extent: int, n: int):
+    """The tile grid's bands along one axis, computed here apart from the
+    store's own ``tile_bounds``."""
+    return [((extent * i) // n, (extent * (i + 1)) // n) for i in range(n)]
+
+
+def subgop_boxes(h: int, w: int, tiles):
+    """(box inside tile (1, 1), box straddling the 2x2 tiles around the
+    first grid corner): half-open (x0, y0, x1, y1), each side even."""
+    ys, xs = _bands(h, tiles[0]), _bands(w, tiles[1])
+    (y0, y1), (x0, x1) = ys[1], xs[1]
+    iy, ix = (y1 - y0) // 8, (x1 - x0) // 8
+    inside = (x0 + ix, y0 + iy, x1 - ix, y1 - iy)
+    ay, ax = (ys[0][1] - ys[0][0]) // 2, (xs[0][1] - xs[0][0]) // 2
+    cy, cx = ys[1][0], xs[1][0]
+    return inside, (cx - ax, cy - ay, cx + ax, cy + ay)
+
+
+def _decodes(h, w, tiles, box, f0, f1, hi_cut=None):
+    """{(gop, row, col): (T, C, H, W)}: every GOP object a read of frames
+    [f0, f1) and ``box`` must decode, with the shape it decodes at: each
+    covering tile of each GOP the frames touch, or for an untiled video
+    each GOP whole, the last one a prefix of ``hi_cut`` frames."""
+    g = SUBGOP_GOP
+    ys, xs = _bands(h, tiles[0]), _bands(w, tiles[1])
+    x0, y0, x1, y1 = box if box is not None else (0, 0, w, h)
+    out = {}
+    for gi in range(f0 // g, (f1 - 1) // g + 1):
+        t = hi_cut if hi_cut is not None and gi == (f1 - 1) // g else g
+        for r, (a, b) in enumerate(ys):
+            for c, (d, e) in enumerate(xs):
+                if a < y1 and b > y0 and d < x1 and e > x0:
+                    out[(gi, r, c)] = (t, 3, b - a, e - d)
+    return out
+
+
+def subgop_reads(sizes):
+    """The phase's reads: (label, video, ReadSpec keywords, expectation).
+    ``sizes`` maps each clip key to its (frames, H, W).  The expectation
+    holds the frames and box the read must return (``half``: at half
+    resolution), the GOP objects it decodes (`_decodes`), and the ranged
+    fetches it makes.  Every read skips the cache, and none is preceded
+    by a cached read: each plan must fetch stored GOPs."""
+    n, h, w = sizes["1080p"]
+    g = SUBGOP_GOP
+    reads = []
+
+    def add(label, video, kw, f0, f1, box=None, half=False, ranged=0,
+            tiles=(1, 1), hh=h, ww=w, hi_cut=None):
+        reads.append((label, video, dict(kw, cache=False), {
+            "frames": (f0, f1), "box": box, "half": half, "ranged": ranged,
+            "decodes": _decodes(hh, ww, tiles, box, f0, f1, hi_cut),
+            "tiled": tiles != (1, 1)}))
+
+    k = SUBGOP_TRIM
+    add("flat 3 frames at GOP 0", "flat", {"t": (0.0, k / 30)}, 0, k,
+        ranged=1, hi_cut=k)
+    add("flat 3 frames at GOP 1", "flat", {"t": (g / 30, (g + k) / 30)},
+        g, g + k, ranged=1, hi_cut=k)
+    p = SUBGOP_PAST_FRACTION
+    add(f"flat {p} frames (past the ranged fraction)", "flat",
+        {"t": (0.0, p / 30)}, 0, p)
+    add("flat whole", "flat", {}, 0, n)
+    inside33, _ = subgop_boxes(h, w, (3, 3))
+    add("flat box inside one 3x3 tile", "flat", {"roi": inside33}, 0, n,
+        box=inside33)
+    for video, key, tiles in SUBGOP_VIDEOS:
+        if tiles is None:
+            continue
+        vn, vh, vw = sizes[key]
+        window = subgop_window(vn)
+        a0, a1 = (int(round(t * 30)) for t in window)
+        inside, across = subgop_boxes(vh, vw, tiles)
+        half = ((across[2] - across[0]) // 2, (across[3] - across[1]) // 2)
+        geo = dict(tiles=tiles, hh=vh, ww=vw)
+        add(f"{video} box inside one tile", video, {"roi": inside}, 0, vn,
+            box=inside, **geo)
+        add(f"{video} box across 2x2 tiles", video, {"roi": across}, 0, vn,
+            box=across, **geo)
+        add(f"{video} whole frame", video, {}, 0, vn, **geo)
+        add(f"{video} across at half resolution", video,
+            {"roi": across, "resolution": half}, 0, vn, box=across,
+            half=True, **geo)
+        add(f"{video} across over t={window}", video,
+            {"roi": across, "t": window}, a0, a1, box=across, **geo)
+    return reads
+
+
+def subgop_batch(sizes):
+    """Three overlapping ROI specs on the (3, 3) 1080p video for one
+    ``read_batch``: (label, ReadSpec keywords, frames, box) each, and the
+    GOP tiles the batch decodes, each once."""
+    n, h, w = sizes["1080p"]
+    inside, across = subgop_boxes(h, w, (3, 3))
+    ys, xs = _bands(h, 3), _bands(w, 3)
+    right = (xs[1][0] + (across[2] - across[0]) // 2, across[1],
+             xs[2][0] + (across[2] - across[0]) // 2, across[3])
+    specs = (("across, t=(0, 2)", {"roi": across, "t": (0.0, 2.0)}, (0, 60),
+              across),
+             ("inside, t=(1, 3)", {"roi": inside, "t": (1.0, 3.0)},
+              (30, 90), inside),
+             ("right of across, t=(0.5, 2.5)",
+              {"roi": right, "t": (0.5, 2.5)}, (15, 75), right))
+    union = {}
+    for _label, _kw, (f0, f1), box in specs:
+        union.update(_decodes(h, w, (3, 3), box, f0, f1))
+    return specs, union
+
+
+class ShapeSpy:
+    """Records the (T, C, H, W) of every ``delta_encode`` and
+    ``delta_decode`` call made through ``ops`` while active (the codec
+    calls them there), and calls through: the wrappers count their own
+    launches as ever."""
+
+    def __init__(self):
+        self.calls = {"delta_encode": [], "delta_decode": []}
+
+    def __enter__(self):
+        self._orig = (ops.delta_encode, ops.delta_decode)
+        enc, dec = self._orig
+
+        def spy_encode(frames, **kw):
+            self.calls["delta_encode"].append(tuple(frames.shape))
+            return enc(frames, **kw)
+
+        def spy_decode(iframe, residuals, **kw):
+            self.calls["delta_decode"].append(
+                (residuals.shape[0] + 1, *iframe.shape))
+            return dec(iframe, residuals, **kw)
+
+        ops.delta_encode, ops.delta_decode = spy_encode, spy_decode
+        return self
+
+    def __exit__(self, *exc):
+        ops.delta_encode, ops.delta_decode = self._orig
+
+    def take(self) -> dict:
+        out = {k: sorted(v) for k, v in self.calls.items() if v}
+        for v in self.calls.values():
+            v.clear()
+        return out
+
+
+def _stored_objects(vss) -> dict:
+    """{object key: stored bytes} of every GOP the store indexes, each
+    tile of a tiled GOP under its own key."""
+    out = {}
+    for g in vss.catalog.all_gops():
+        tiles = vss.catalog.get_physical(g.physical_id).tiles
+        keys = tile_keys(g.path, tiles) if tiles != (1, 1) else [g.path]
+        out.update({k: vss.backend.get(k) for k in keys})
+    return out
+
+
+def drive_subgop(root: str, clips, device: str, faults=False):
+    """The sub-GOP phase on ``device`` in a fresh ``local`` store: each of
+    `SUBGOP_VIDEOS` written as hevc in 30-frame GOPs, every read of
+    `subgop_reads`, then the `subgop_batch`.  Each write and read runs
+    with the launch counts set to 0 just before it and read just after;
+    for each it keeps the frames, the counter deltas, the shapes the
+    delta kernels ran at and the codecs its plan read.  With ``faults``,
+    two reads run again with a planted fault: the stitched tiles one
+    column off, a ranged prefix one frame short."""
+    sizes = {k: c.shape[:3] for k, c in clips.items()}
+    reg = MetricsRegistry()
+    vss = VSS(root, config=VSSConfig(device=device, backend="local",
+                                     registry=reg))
+    step = _Steps(device)
+    run = {"frames": {}, "counters": {}, "shapes": {}, "sources": {},
+           "secs": step.secs, "launches": step.launches}
+
+    def measured(label, fn):
+        before = {k: reg.value(m) for k, m in SUBGOP_COUNTERS.items()}
+        out = step(label, fn)
+        run["shapes"][label] = spy.take()
+        run["counters"][label] = {k: reg.value(m) - before[k]
+                                  for k, m in SUBGOP_COUNTERS.items()}
+        return out
+
+    with ShapeSpy() as spy:
+        for video, key, tiles in SUBGOP_VIDEOS:
+            measured(f"write {video}", lambda: vss.write_spec(WriteSpec(
+                name=video, fps=30.0, codec="hevc", gop_frames=SUBGOP_GOP,
+                tiles=tiles), clips[key]))
+        for label, video, kw, _want in subgop_reads(sizes):
+            r = measured(label, lambda: vss.read(video, **kw))
+            run["frames"][label] = r.frames
+            run["sources"][label] = _plan_codecs(r.plan)
+        specs, _union = subgop_batch(sizes)
+        rs = measured("read_batch", lambda: vss.read_batch([
+            ReadSpec(name="t3x3", cache=False, **kw)
+            for _l, kw, _f, _b in specs]))
+        for (label, _kw, _f, _b), r in zip(specs, rs):
+            run["frames"][f"read_batch {label}"] = r.frames
+            run["sources"][f"read_batch {label}"] = _plan_codecs(r.plan)
+        if faults:
+            run["faults"] = _subgop_faults(vss, sizes, spy)
+    run["objects"] = _stored_objects(vss)
+    vss.close()
+    return run
+
+
+def _subgop_faults(vss, sizes, spy) -> dict:
+    """{read label: frames} of two reads run with a planted fault."""
+    out = {}
+    reads = {label: (video, kw) for label, video, kw, _w in
+             subgop_reads(sizes)}
+    load_tiles, load_prefix = vss._load_tiled_frames, vss._load_gop_prefix
+
+    def shifted(*a, **kw):  # the stitched frames one column off
+        frames, origin = load_tiles(*a, **kw)
+        return np.roll(frames, 1, axis=2), origin
+
+    def short(g, hi, io=None):  # a prefix one frame short
+        return load_prefix(g, hi - 1, io)
+
+    for label, attr, fault in (
+            ("t3x3 box across 2x2 tiles", "_load_tiled_frames", shifted),
+            ("flat 3 frames at GOP 0", "_load_gop_prefix", short)):
+        video, kw = reads[label]
+        setattr(vss, attr, fault)
+        try:
+            out[label] = vss.read(video, **kw).frames
+        finally:
+            delattr(vss, attr)
+    spy.take()
+    return out
+
+
+def _crop(whole, want):
+    """What a read must return, cut from a whole-frame read of the same
+    frames: ``want``'s frames and box, box-averaged to half resolution
+    when ``want["half"]`` (the store's integer-factor resample)."""
+    f0, f1 = want["frames"]
+    x0, y0, x1, y1 = want["box"] or (0, 0, whole.shape[2], whole.shape[1])
+    out = whole[f0:f1, y0:y1, x0:x1]
+    if want["half"]:
+        out = resample(out, ((x1 - x0) // 2, (y1 - y0) // 2), device="cpu")
+    return out
+
+
+def check_subgop(gpu, cpu, flat, uhd, sizes, report=True) -> None:
+    """The card's run against the CPU run and against the plans: every
+    read's frames, every stored object, the counter deltas, the launches
+    and the kernels' shapes equal the CPU run's; each read's frames are
+    the same cut of a whole-frame decode of the same clip (``flat``
+    1080p, ``uhd`` 4K); each write launched ``delta_encode`` once a tile
+    a GOP, each read ``delta_decode`` once a covering tile a GOP (an
+    untiled GOP whole, or a 3-frame prefix where the read is a ranged
+    trim) and made the ranged fetches its plan implies, and the batch
+    decoded each covering tile once."""
+    for name in gpu["frames"]:
+        fg, fc = gpu["frames"][name], cpu["frames"][name]
+        if fg.shape != fc.shape or not np.array_equal(fg, fc):
+            raise AssertionError(f"sub-GOP {name}: cuda frames {fg.shape}"
+                                 f" != cpu frames {fc.shape}")
+    for what in ("launches", "counters", "shapes", "sources"):
+        for name, got in gpu[what].items():
+            if got != cpu[what][name]:
+                raise AssertionError(
+                    f"sub-GOP {name}: cuda {what} {got} != cpu"
+                    f" {cpu[what][name]}")
+    if gpu["objects"].keys() != cpu["objects"].keys():
+        raise AssertionError("sub-GOP: the stores' object keys differ")
+    bad = [k for k, b in gpu["objects"].items() if b != cpu["objects"][k]]
+    if bad:
+        raise AssertionError(f"sub-GOP: objects differ: {bad}")
+
+    wholes = {"1080p": flat, "4k": uhd}
+    for video, key, tiles in SUBGOP_VIDEOS:
+        n = sizes[key][0]
+        per_gop = tiles[0] * tiles[1] if tiles else 1
+        want = {"delta_encode": per_gop * n // SUBGOP_GOP}
+        shapes = sorted(_decodes(*sizes[key][1:], tiles or (1, 1), None, 0,
+                                 n).values())
+        if (gpu["launches"][f"write {video}"] != want or gpu["shapes"][
+                f"write {video}"].get("delta_encode") != shapes):
+            raise AssertionError(
+                f"sub-GOP write {video} launched"
+                f" {gpu['launches'][f'write {video}']}, expected {want}"
+                f" at {sorted(set(shapes))}")
+    reads = [(label, video, want) for label, video, _kw, want
+             in subgop_reads(sizes)]
+    specs, union = subgop_batch(sizes)
+    for name, video, want in reads:
+        key = dict((v, k) for v, k, _t in SUBGOP_VIDEOS)[video]
+        if gpu["sources"][name] != {"tvc-hi"}:
+            raise AssertionError(f"sub-GOP {name}: planned from"
+                                 f" {gpu['sources'][name]}, not tvc-hi")
+        shapes = sorted(want["decodes"].values())
+        got = gpu["shapes"][name].get("delta_decode", [])
+        if got != shapes:
+            raise AssertionError(f"sub-GOP {name}: decoded {got}, the plan"
+                                 f" needs {shapes}")
+        if gpu["launches"][name] != {"delta_decode": len(shapes)}:
+            raise AssertionError(f"sub-GOP {name}: launched"
+                                 f" {gpu['launches'][name]}, the plan needs"
+                                 f" {len(shapes)} delta_decode")
+        c = gpu["counters"][name]
+        tile_fetches = len(shapes) if want["tiled"] else 0
+        strict = want["tiled"] and want["box"] is not None
+        if (c["ranged"] != want["ranged"] or (c["saved"] > 0)
+                != bool(want["ranged"]) or c["tile_fetches"] != tile_fetches
+                or c["tile_reads"] != int(strict)):
+            raise AssertionError(f"sub-GOP {name}: counters {c}, the plan"
+                                 f" implies ranged {want['ranged']}, tile"
+                                 f" fetches {tile_fetches}")
+        expect = _crop(wholes[key], want)
+        got = gpu["frames"][name]
+        if got.shape != expect.shape or not np.array_equal(got, expect):
+            raise AssertionError(f"sub-GOP {name}: frames {got.shape} are"
+                                 " not the whole-frame decode's cut"
+                                 f" {expect.shape}")
+    batch = sorted(union.values())
+    if (gpu["shapes"]["read_batch"].get("delta_decode", []) != batch
+            or gpu["launches"]["read_batch"] != {"delta_decode": len(batch)}
+            or gpu["counters"]["read_batch"]["tile_fetches"] != len(batch)):
+        raise AssertionError(
+            f"sub-GOP read_batch: launched {gpu['launches']['read_batch']},"
+            f" counters {gpu['counters']['read_batch']}: each of the"
+            f" {len(batch)} covering tiles must decode once")
+    for label, _kw, frames, box in specs:
+        want = {"frames": frames, "box": box, "half": False}
+        got = gpu["frames"][f"read_batch {label}"]
+        if not np.array_equal(got, _crop(flat, want)):
+            raise AssertionError(f"sub-GOP read_batch {label}: frames are"
+                                 " not the whole-frame decode's cut")
+    if not report:
+        return
+    for name in gpu["launches"]:
+        print(f"  {name}: launches {gpu['launches'][name]}, kernel shapes"
+              f" {_shape_summary(gpu['shapes'][name])}, counters"
+              f" {gpu['counters'][name]}")
+    n_reads = len(reads) + len(specs)
+    print(f"  {n_reads} reads equal on cuda and cpu bit for bit and equal"
+          " the whole-frame decode's cut; "
+          f"{len(gpu['objects'])} stored objects equal byte for byte;"
+          " counters, launches and kernel shapes equal the cpu run's and"
+          " the plans'")
+
+
+def _shape_summary(shapes: dict) -> str:
+    parts = []
+    for kernel, ss in shapes.items():
+        counts = {}
+        for s in ss:
+            counts[s] = counts.get(s, 0) + 1
+        parts.append(f"{kernel} " + ", ".join(
+            f"{n}x{list(s)}" for s, n in counts.items()))
+    return "; ".join(parts) or "none"
+
+
+def check_subgop_faults(gpu, cpu, flat, uhd, sizes) -> None:
+    """Each planted fault's read, put in place of the good one, must
+    fail `check_subgop`."""
+    for label, frames in gpu["faults"].items():
+        bad = dict(gpu, frames=dict(gpu["frames"], **{label: frames}))
+        try:
+            check_subgop(bad, cpu, flat, uhd, sizes, report=False)
+        except AssertionError as e:
+            print(f"  planted fault in {label!r} caught: {e}")
+            continue
+        raise AssertionError(f"sub-GOP: the planted fault in {label!r}"
+                             " went unnoticed")
+
+
+def whole_frame_decode(clip: np.ndarray, device: str) -> np.ndarray:
+    """The clip encoded as hevc in 30-frame whole-frame GOPs and decoded
+    again, without a store: what every read of the phase cuts from."""
+    return np.concatenate([
+        codec.decode_gop(codec.encode_gop(
+            clip[i:i + SUBGOP_GOP], "hevc", device=device), device=device)
+        for i in range(0, clip.shape[0], SUBGOP_GOP)])
+
+
+def subgop_phase(clip, main_whole, card, device="cuda", uhd_clip=None):
+    """Runs the phase on ``device`` and on the CPU and checks both (see
+    `check_subgop`); ``main_whole`` is the main path's whole read of
+    ``clip``, which the untiled store's whole read must equal.  Returns
+    the card's launches per step."""
+    t_phase = t0 = time.perf_counter()
+    if uhd_clip is None:
+        n, h, w = SUBGOP_UHD
+        uhd_clip = synthesize_road(n, width=w, height=h, seed=2)
+    print(f"  4K clip {uhd_clip.shape} synthesized in"
+          f" {time.perf_counter() - t0:.1f} s", flush=True)
+    clips = {"1080p": clip, "4k": uhd_clip}
+    sizes = {k: c.shape[:3] for k, c in clips.items()}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        gpu = drive_subgop(os.path.join(d, "vss"), clips, device,
+                           faults=True)
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        cpu = drive_subgop(os.path.join(d, "vss"), clips, "cpu")
+    cpu_s = time.perf_counter() - t0
+    flat = gpu["frames"]["flat whole"]
+    if not np.array_equal(flat, main_whole):
+        raise AssertionError("sub-GOP flat whole read != the main path's")
+    uhd = whole_frame_decode(uhd_clip, device)
+    check_subgop(gpu, cpu, flat, uhd, sizes)
+    check_subgop_faults(gpu, cpu, flat, uhd, sizes)
+    saved = sum(c["saved"] for c in gpu["counters"].values())
+    print(f"  ranged prefix fetches"
+          f" {sum(c['ranged'] for c in gpu['counters'].values()):g},"
+          f" bytes saved {saved:g}")
+    for name, secs in gpu["secs"].items():
+        print(f"  {name}: cuda {secs:.3f} s, cpu {cpu['secs'][name]:.3f} s"
+              f" [{card}]")
+    flat_s = gpu["secs"]["flat box inside one 3x3 tile"]
+    tiled_s = gpu["secs"]["t3x3 box inside one tile"]
+    print(f"  the same box inside one 3x3 tile, whole clip: untiled"
+          f" {flat_s:.3f} s, tiled {tiled_s:.3f} s, untiled / tiled"
+          f" {flat_s / tiled_s:.2f}x (for the record) [{card}]")
+    print(f"  sub-GOP phase: cuda run {gpu_s:.1f} s, cpu run {cpu_s:.1f} s,"
+          f" {time.perf_counter() - t_phase:.1f} s wall [{card}]")
+    return gpu["launches"]
+
+
 # -- the backends phase: the rest of the storage layer under VSS ---------
 
 BACKENDS = ("tiered:remote", "replicated:3:2:2", "sharded:4")
@@ -930,11 +1439,6 @@ HOT_WINDOW = {"t": (0.0, 0.5)}  # the window the adaptive tick keeps hot
 COLD_SLEEP_S = 3.0  # six half-lives: every epoch read before it goes cold
 ADAPTIVE = dict(enabled=True, half_life_s=0.5, interval_s=0.5,
                 min_view_score=1e9)  # tiering alone, no view materialized
-
-
-def _gop_objects(vss) -> dict:
-    """{catalog path: stored bytes} of every GOP the store indexes."""
-    return {g.path: vss.backend.get(g.path) for g in vss.catalog.all_gops()}
 
 
 def _read_all(vss, videos, step, frames, prefix=""):
@@ -1029,7 +1533,7 @@ def drive_backend(spec: str, root: str, videos, device: str,
         step(f"write {name}",
              lambda: vss.write(name, clip, fps=30.0, codec="hevc"))
     _read_all(vss, videos, step, frames)
-    objects = _gop_objects(vss)
+    objects = _stored_objects(vss)
     notes = {}
     if spec == "tiered:remote":
         vss, notes["adapt"], samples = _tiered_remote_steps(
@@ -2457,9 +2961,14 @@ def nondense_model(cfg, device, seed=0):
 # families (in the MoE ones outside the token positions routed otherwise
 # than in forward in some layer, which the rounding of the decode path's
 # hidden state moves: most of them in deepseek).  In recurrentgemma and
-# xlstm the depth amplifies the decode path's rounding past it (the
-# reference's own decode and parallel passes differ the same way); there
-# it is reported and the layer-local check holds the path.
+# xlstm the depth amplifies the decode path's rounding past it, and the
+# reference's own decode path is as far from its forward:
+# tests/test_torch_depth_gap.py runs both packages at smoke widths and
+# the published depth on the CPU (8 decode steps after a 32-token
+# prompt) and measures the reference's decode - forward at 4.4688 (xlstm,
+# 48 layers) and 0.4336 (recurrentgemma, 26), the port's 4.4688 and
+# 0.4209, the port's decode within 0.1445 of the reference's.  There the
+# end-to-end gap is reported and the layer-local check holds the path.
 E2E_HELD = ("deepseek-moe-16b", "llama4-scout-17b-a16e", "whisper-large-v3",
             "llama-3.2-vision-11b")
 # Largest layer-local difference allowed: a step's output row against the
@@ -3459,6 +3968,17 @@ def main() -> int:
     print("kernels vs plain versions on the card (exact):", flush=True)
     knum = check_kernels("cuda", (("1080p", GOP_1080P), ("ragged", RAGGED)),
                          reps=20)
+    print("delta kernels at the sub-GOP phase's shapes (exact):", flush=True)
+    sub_k, sub_err = check_subgop_kernels("cuda", reps=20)
+    for name in ("delta_encode", "delta_decode"):
+        knum[name]["max_abs_err"] = max(knum[name]["max_abs_err"], sub_err)
+        knum[name].setdefault("also", {})["at_subgop_shapes"] = {
+            label: r[name] for label, r in sub_k.items()}
+        for label, r in sub_k.items():
+            x = r[name]
+            print(f"  {name:12s} at the {label} {x['shape']} {x['dtype']}:"
+                  f" kernel {x['ms']:.4f} ms, plain {x['plain_ms']:.4f} ms,"
+                  f" bound {x['bound_ms']:.4f} ms ({x['bound_by']}) [{card}]")
     jnum = check_joint_kernels("cuda", reps=50)
     launch_floor_ms = jnum.pop("launch_floor_ms")
     knum.update(jnum)
@@ -3517,6 +4037,13 @@ def main() -> int:
     for name, spans in gpu["spans"].items():
         print(f"  spans of read {name}: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in spans.items()))
+
+    print("sub-GOP phase: ranged prefix reads and the tiled ROI layout, "
+          + ", ".join(f"{v} {t or 'untiled'}" for v, _k, t in SUBGOP_VIDEOS),
+          flush=True)
+    subgop_launches = subgop_phase(
+        clip, gpu["reads"]["whole clip as rgb"][0], card)
+    gc.collect()
 
     print("backends phase: the main path's clip and a second one (seed 1),"
           f" 6 GOPs a store, on local and {', '.join(BACKENDS)}", flush=True)
@@ -3617,6 +4144,7 @@ def main() -> int:
     paths = dict(gpu["launches"])
     paths.update({f"joint {k}": v for k, v in jgpu["launches"].items()})
     paths["psnr of the whole read"] = psnr_launches
+    paths.update({f"sub-GOP {k}": v for k, v in subgop_launches.items()})
     paths.update(backend_launches)
     paths.update({f"video service {k}": v
                   for k, v in sgpu["launches"].items()})

@@ -3,8 +3,8 @@
 ``get_config(name)`` returns the full published config; ``smoke_config``
 shrinks it to a CPU-runnable variant of the same family (same pattern,
 same block types, tiny dims) for the per-arch smoke tests.  A copy of
-``repro.configs`` (plain dataclasses), without the VSS paper's own
-store configuration.
+``repro.configs`` (plain dataclasses); the VSS paper's own store
+configuration is ``configs/vss_paper.py``.
 """
 from __future__ import annotations
 

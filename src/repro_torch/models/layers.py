@@ -65,6 +65,17 @@ def weight(shape, fan_in, *, generator, device,
         requires_grad=False)
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; "cuda" without a card raises (no
+    entry point falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the model runs on 'cuda' by default;"
+            " pass device='cpu' to run on the CPU")
+    return dev
+
+
 def zeros_f32(n: int, device) -> torch.nn.Parameter:
     """An f32 norm scale or bias, zero at init (no grad until a trainer
     asks for it)."""

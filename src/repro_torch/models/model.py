@@ -60,6 +60,7 @@ import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.layers import resolve_device
 from repro_torch.models import recurrent as R
 from repro_torch.models.sharding import (
     ShardCtx,
@@ -258,17 +259,6 @@ class CausalLM(torch.nn.Module):
                 ctx: Optional[ShardCtx] = None):
         return parallel(self, tokens, frames=frames, patches=patches,
                         ctx=ctx)
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; "cuda" without a card raises (no
-    entry point falls back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available: the model runs on 'cuda' by default;"
-            " pass device='cpu' to run on the CPU")
-    return dev
 
 
 def init_model(cfg: ArchConfig, *, device="cuda",

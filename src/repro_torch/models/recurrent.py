@@ -31,6 +31,7 @@ from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     NO_MESH,
     gelu,
+    resolve_device,
     sigmoid,
     silu,
     weight,
@@ -189,7 +190,8 @@ def rglru_block_step(p: RGLRU, state, x_t, ctx: ShardCtx = NO_MESH):
 
 
 def rglru_init_state(batch: int, width: int, conv_width: int = 4,
-                     dtype=COMPUTE_DTYPE, device="cpu"):
+                     dtype=COMPUTE_DTYPE, device="cuda"):
+    device = resolve_device(device)
     return {
         "conv": torch.zeros((batch, conv_width - 1, width), dtype=dtype,
                             device=device),
@@ -348,7 +350,8 @@ def _mlstm_state(k, v, i_raw, f_raw):
 
 
 def mlstm_init_state(batch: int, cfg: MLstmCfg, dtype=COMPUTE_DTYPE,
-                     device="cpu"):
+                     device="cuda"):
+    device = resolve_device(device)
     h, hd = cfg.num_heads, cfg.head_dim
     return {
         "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.inner),
@@ -436,7 +439,9 @@ class SLstm(torch.nn.Module):
         self.lstm_down = weight((ud, d), ud, **kw)
 
 
-def slstm_init_state(batch: int, cfg: SLstmCfg, device="cpu"):
+def slstm_init_state(batch: int, cfg: SLstmCfg, device="cuda"):
+    device = resolve_device(device)
+
     def z():
         return torch.zeros((batch, cfg.inner), dtype=F32, device=device)
 

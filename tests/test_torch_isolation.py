@@ -65,6 +65,8 @@ def test_package_works_with_jax_and_reference_blocked(tmp_path):
         for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
             importlib.import_module(m.name)
         from repro_torch import codec
+        from repro_torch.configs import vss_paper
+        assert len(vss_paper.DATASETS) == 7 and vss_paper.CONFIG.gamma == 2.0
         from repro_torch.core import VSS, VSSConfig
         clip = np.random.default_rng(0).integers(
             0, 256, (5, 16, 24, 3)).astype(np.uint8)
@@ -196,6 +198,16 @@ def test_default_device_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         VSS(str(tmp_path / "s"))
     assert not (tmp_path / "s").exists()  # raised before touching disk
+    # the recurrent layers' decode states, built on their own
+    from repro_torch.models import recurrent as R
+
+    for make in (lambda **kw: R.rglru_init_state(2, 8, **kw),
+                 lambda **kw: R.mlstm_init_state(2, R.MLstmCfg(16, 2), **kw),
+                 lambda **kw: R.slstm_init_state(2, R.SLstmCfg(16, 2), **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        assert all(t.device.type == "cpu"
+                   for t in make(device="cpu").values())
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():

@@ -208,7 +208,8 @@ def test_rglru_prefill_state_matches_step_chain():
     p, mod = _rglru()
     _, xt = _x((2, 12, 32), "f32")
     _, state_par = TR.rglru_block_prefill(mod, xt)
-    state = TR.rglru_init_state(2, 24, dtype=torch.float32)
+    state = TR.rglru_init_state(2, 24, dtype=torch.float32,
+                                 device="cpu")
     for t in range(12):
         state, _ = TR.rglru_block_step(mod, state, xt[:, t])
     np.testing.assert_allclose(state_par["h"].numpy(), state["h"].numpy(),
@@ -219,7 +220,7 @@ def test_rglru_prefill_state_matches_step_chain():
 
 def test_rglru_init_state_matches_reference():
     sj = JR.rglru_init_state(3, 24)
-    st = TR.rglru_init_state(3, 24)
+    st = TR.rglru_init_state(3, 24, device="cpu")
     for k in sj:
         assert tuple(st[k].shape) == sj[k].shape
         assert str(st[k].dtype).split(".")[-1] == str(sj[k].dtype)
@@ -283,7 +284,8 @@ def test_mlstm_prefill_state_matches_step_chain():
     _, cfg, _, mod = _mlstm()
     _, x = _x((2, 12, 32), "f32")
     _, state_par = TR.mlstm_block_prefill(mod, x, cfg)
-    state_seq = TR.mlstm_init_state(2, cfg, dtype=torch.float32)
+    state_seq = TR.mlstm_init_state(2, cfg, dtype=torch.float32,
+                                     device="cpu")
     for t in range(12):
         state_seq, _ = TR.mlstm_block_step(mod, state_seq, x[:, t], cfg)
     np.testing.assert_allclose(state_par["C"].numpy(),
@@ -295,7 +297,7 @@ def test_mlstm_prefill_state_matches_step_chain():
 def test_mlstm_init_state_matches_reference():
     cfg_j, cfg_t = JR.MLstmCfg(32, 2), TR.MLstmCfg(32, 2)
     sj = JR.mlstm_init_state(3, cfg_j)
-    st = TR.mlstm_init_state(3, cfg_t)
+    st = TR.mlstm_init_state(3, cfg_t, device="cpu")
     for k in sj:
         assert tuple(st[k].shape) == sj[k].shape
         np.testing.assert_array_equal(st[k].float().numpy(),
@@ -336,7 +338,7 @@ def test_slstm_recurrent_weights_stay_f32_and_count():
             getattr(mod, k).zero_()
     assert float((TR.slstm_block(mod, xt, cfg) - out).abs().max()) > 1e-2
     sj = JR.slstm_init_state(3, JR.SLstmCfg(32, 2))
-    st = TR.slstm_init_state(3, cfg)
+    st = TR.slstm_init_state(3, cfg, device="cpu")
     for k in sj:
         np.testing.assert_array_equal(st[k].numpy(), np.asarray(sj[k]))
 
