@@ -1,24 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of the port's main path goes, on one NVIDIA GPU.
+"""Where the time of the port's joint, serving and training paths goes,
+on one NVIDIA GPU.
 
     python3 chip_breakdown.py
 
 Run from the root of a checkout on a machine with a CUDA card, after or
-instead of ``chip_smoke.py`` (it builds the kernels itself).  It drives
-the same main path as ``chip_smoke.py`` (``drive_store``: a 1080p,
-90-frame clip written as ``hevc``, one ``transcode_gop``, five reads) and
+instead of ``chip_smoke.py`` (it builds the kernels itself).  The main
+path (writes and view reads of a store) is measured by ``vssbench``: its
+traced runs name every idle second by the program's own spans.  This
 prints:
 
-- one 1080p GOP's ``encode_gop`` and ``decode_gop`` wall time, each
-  beside its host zlib stage alone (medians of 3, host clock);
-- the host numpy box resample behind the half-resolution read;
-- the wall time of one CUDA main-path run under ``torch.profiler``, the
-  device time the profiler saw in it (kernels and copies), the idle
-  share, and the device time by name;
-- the same for one CUDA run of ``chip_smoke.py``'s joint path (two
-  1080p camera pairs written, jointly compressed and read back), with
-  the device time split by kernel name into the warp, the histogram,
-  the codec kernels, copies and the rest;
+- the wall time of one CUDA run of ``chip_smoke.py``'s joint path (two
+  1080p camera pairs written, jointly compressed and read back) under
+  ``torch.profiler``, the device time the profiler saw in it (kernels
+  and copies), the idle share, and the device time by name, split by
+  kernel name into the warp, the histogram, the codec kernels, copies
+  and the rest;
 - the same for one CUDA run of ``chip_smoke.py``'s serving path (the
   paged-KV engine over Qwen3-32B at full width, 16 layers, eight
   requests), with the device time split into the paged attention (its
@@ -34,7 +31,7 @@ prints:
 
 Every time stands beside the card's ``nvidia-smi`` name and power
 limit.  It checks nothing that ``chip_smoke.py`` does not; it is the
-diagnosis behind PERF.md's "Where the time goes".
+diagnosis of the paths that no benchmark cell runs yet.
 """
 from __future__ import annotations
 
@@ -44,44 +41,10 @@ import sys
 import tempfile
 import time
 
-import numpy as np
 import torch
 
 import chip_smoke  # noqa: E402  (puts src/ on sys.path)
-from repro_torch import codec  # noqa: E402
-from repro_torch.codec import tvc  # noqa: E402
-from repro_torch.core.store import resample  # noqa: E402
-from repro_torch.data.video import synthesize_road  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-
-
-def codec_breakdown(gop: np.ndarray, device: str, reps: int = 3):
-    """Host-clock split of one GOP's encode and decode on ``device``:
-    the entropy stage (zlib on the host) against the rest (upload,
-    layout, kernel, download).  Medians of ``reps`` runs, in seconds."""
-    enc = codec.encode_gop(gop, "hevc", device=device)  # warm up
-    tier = tvc.TIERS["tvc-hi"]
-    t, h, w, c = gop.shape
-    raw = tvc._raw_payload(enc)
-    iframe_u8 = np.frombuffer(bytes(raw[:h * w * c]), np.uint8)
-    resid = np.frombuffer(bytes(raw[h * w * c:]), np.int8).reshape(
-        t - 1, c, h, w)
-
-    def med(fn):
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        return float(np.median(times))
-
-    return {
-        "encode_s": med(lambda: codec.encode_gop(gop, "hevc", device=device)),
-        "encode_zlib_s": med(lambda: tvc._chunked_gop(
-            "tvc-hi", gop.shape, iframe_u8, resid, tier)),
-        "decode_s": med(lambda: codec.decode_gop(enc, device=device)),
-        "decode_zlib_s": med(lambda: tvc._raw_payload(enc)),
-    }
 
 
 def device_busy(run):
@@ -112,30 +75,16 @@ def main() -> int:
     card = chip_smoke.card_line()
     print(f"card: {card}", flush=True)
     _build.build_all()
-    clip = synthesize_road(90, width=1920, height=1080, seed=0)
-
-    br = codec_breakdown(clip[:30], "cuda")
-    print(f"one 1080p GOP, hevc, cuda: encode_gop {br['encode_s']:.3f} s"
-          f" (zlib {br['encode_zlib_s']:.3f} s), decode_gop"
-          f" {br['decode_s']:.3f} s (zlib {br['decode_zlib_s']:.3f} s)"
-          f" [{card}]")
-    half = (clip.shape[2] // 2, clip.shape[1] // 2)
-    t0 = time.perf_counter()
-    resample(clip, half, device="cuda")  # integer factor: host numpy
-    print(f"resample of the 90-frame clip to {half} (host numpy box"
-          f" mean): {time.perf_counter() - t0:.3f} s [{card}]")
     cams = chip_smoke.joint_cameras()
-    for label, drive, data in (
-            ("main path", chip_smoke.drive_store, clip),
-            ("joint path", chip_smoke.drive_joint, cams)):
-        with tempfile.TemporaryDirectory() as d:
-            wall, busy, by_name = device_busy(
-                lambda: drive(os.path.join(d, "vss"), data, "cuda"))
-        report(label, wall, busy, by_name, card)
-        if busy is not None and label == "joint path":
-            split = split_by_name(by_name, JOINT_PARTS)
-            print("joint device time by part: " + ", ".join(
-                f"{k} {v:.4f} s" for k, v in split.items()) + f" [{card}]")
+    with tempfile.TemporaryDirectory() as d:
+        wall, busy, by_name = device_busy(
+            lambda: chip_smoke.drive_joint(os.path.join(d, "vss"), cams,
+                                           "cuda"))
+    report("joint path", wall, busy, by_name, card)
+    if busy is not None:
+        split = split_by_name(by_name, JOINT_PARTS)
+        print("joint device time by part: " + ", ".join(
+            f"{k} {v:.4f} s" for k, v in split.items()) + f" [{card}]")
     cfg, model = chip_smoke.serving_model()
     prompts = chip_smoke.serving_prompts(cfg.vocab_size)
     chip_smoke.drive_serving(model, cfg, prompts)  # warm up cuBLAS, caches

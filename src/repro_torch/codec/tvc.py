@@ -42,6 +42,7 @@ except ImportError:  # pragma: no cover - environment-dependent
     zstandard = None
 
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import span
 
 RGB = "rgb"  # raw uncompressed uint8 frames
 
@@ -134,12 +135,15 @@ class EncodedGOP:
 # environments (written with the wheel, read without, or vice versa)
 # round-trip.
 _ZSTD_FRAME_MAGIC = b"\x28\xb5\x2f\xfd"
+# the span of each entropy stage names the coder that ran
+_DEFLATE = "vss.codec.deflate." + ("zlib" if zstandard is None else "zstd")
 
 
 def _zstd(data: bytes, level: int) -> bytes:
-    if zstandard is not None:
-        return zstandard.ZstdCompressor(level=level).compress(data)
-    return zlib.compress(data, min(max(level, 1), 9))
+    with span(_DEFLATE):
+        if zstandard is not None:
+            return zstandard.ZstdCompressor(level=level).compress(data)
+        return zlib.compress(data, min(max(level, 1), 9))
 
 
 def _unzstd(data: bytes) -> bytes:
@@ -149,8 +153,10 @@ def _unzstd(data: bytes) -> bytes:
                 "GOP payload is zstd-compressed but the zstandard wheel"
                 " is not installed"
             )
-        return zstandard.ZstdDecompressor().decompress(data)
-    return zlib.decompress(data)
+        with span("vss.codec.inflate.zstd"):
+            return zstandard.ZstdDecompressor().decompress(data)
+    with span("vss.codec.inflate.zlib"):
+        return zlib.decompress(data)
 
 
 def _resid_torch_dtype(tier: Tier) -> torch.dtype:
@@ -169,20 +175,24 @@ def encode_gop(
     frames = np.asarray(frames, dtype=np.uint8)
     t, h, w, c = frames.shape
     if codec == RGB:
-        return EncodedGOP(RGB, (t, h, w, c), frames.tobytes())
+        with span("vss.codec.rgb_pack"):
+            return EncodedGOP(RGB, (t, h, w, c), frames.tobytes())
     tier = TIERS[codec]
     if t == 1:
         iframe_u8 = np.ascontiguousarray(np.moveaxis(frames[0], -1, 0))
         resid = np.zeros((0, c, h, w), tier.resid_dtype)
     else:
         # upload uint8, widen on the device: 4x fewer bytes over the bus
-        x = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+        with span("vss.codec.h2d"):
+            x = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
         ifr, res = ops.delta_encode(
             ops.to_planar(x), q=tier.q, lo=tier.lo, hi=tier.hi,
             vmin=VMIN, vmax=VMAX, resid_dtype=_resid_torch_dtype(tier),
         )
-        iframe_u8 = ifr.cpu().numpy().astype(np.uint8)
-        resid = res.cpu().numpy()
+        # the host waits here for the kernel too
+        with span("vss.codec.d2h"):
+            iframe_u8 = ifr.cpu().numpy().astype(np.uint8)
+            resid = res.cpu().numpy()
     # one independently-compressed chunk per frame (I-frame, then each
     # residual): a payload prefix [0, offsets[hi]) decodes frames
     # [0, hi) without touching — or even fetching — the rest
@@ -231,8 +241,9 @@ def _planes(enc: EncodedGOP, tier: Tier, device: str):
         raw, dtype=_resid_torch_dtype(tier), offset=isz,
         count=(t - 1) * isz,
     ) if t > 1 else torch.zeros(0, dtype=_resid_torch_dtype(tier))
-    iframe = iframe.to(device).reshape(c, h, w).to(torch.float32)
-    resid = resid.to(device).reshape(t - 1, c, h, w)
+    with span("vss.codec.h2d"):
+        iframe = iframe.to(device).reshape(c, h, w).to(torch.float32)
+        resid = resid.to(device).reshape(t - 1, c, h, w)
     return iframe, resid
 
 
@@ -257,7 +268,9 @@ def _to_uint8_frames(planar: torch.Tensor) -> np.ndarray:
     """(T, C, H, W) f32 -> host (T, H, W, C) uint8, rounded and clipped
     on the device so only bytes cross the bus."""
     out = torch.clamp(torch.round(ops.from_planar(planar)), 0, 255)
-    return out.to(torch.uint8).contiguous().cpu().numpy()
+    out = out.to(torch.uint8).contiguous()
+    with span("vss.codec.d2h"):
+        return out.cpu().numpy()
 
 
 def decode_gop(
@@ -270,7 +283,9 @@ def decode_gop(
     its plain version."""
     t, h, w, c = enc.shape
     if enc.codec == RGB:
-        return np.frombuffer(enc.payload, np.uint8).reshape(t, h, w, c).copy()
+        with span("vss.codec.rgb_unpack"):
+            return np.frombuffer(enc.payload, np.uint8).reshape(
+                t, h, w, c).copy()
     tier = TIERS[enc.codec]
     iframe, resid = _planes(enc, tier, device)
     if t == 1:
@@ -320,8 +335,9 @@ def transcode_gop(
         # the pooled I-frame is fractional and is stored truncated, while
         # the residual chain started from the untruncated value — the
         # reference's behaviour, kept so the blobs are identical
-        iframe_out = io.cpu().numpy()
-        resid_out = ro.cpu().numpy()
+        with span("vss.codec.d2h"):
+            iframe_out = io.cpu().numpy()
+            resid_out = ro.cpu().numpy()
         return _chunked_gop(codec, (t, oh, ow, c),
                             iframe_out.astype(np.uint8), resid_out, tout)
     frames = decode_gop(enc, device=device)

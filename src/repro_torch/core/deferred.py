@@ -27,6 +27,7 @@ except ImportError:  # pragma: no cover - environment-dependent
 from repro_torch.core.cache import CachePolicy
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.types import GopMeta
+from repro_torch.obs.trace import span
 
 ACTIVATION_FRACTION = 0.25
 ZMAGIC = b"ZGOP"  # zstd-wrapped
@@ -36,8 +37,11 @@ MIN_LEVEL, MAX_LEVEL = 1, 19
 
 def wrap_bytes(data: bytes, level: int) -> bytes:
     if zstandard is not None:
-        return ZMAGIC + zstandard.ZstdCompressor(level=level).compress(data)
-    return LMAGIC + zlib.compress(data, min(max(level, 1), 9))
+        with span("vss.deferred.deflate.zstd"):
+            return ZMAGIC + zstandard.ZstdCompressor(level=level).compress(
+                data)
+    with span("vss.deferred.deflate.zlib"):
+        return LMAGIC + zlib.compress(data, min(max(level, 1), 9))
 
 
 def unwrap_bytes(data: bytes) -> bytes:
@@ -47,9 +51,11 @@ def unwrap_bytes(data: bytes) -> bytes:
                 "GOP was zstd-wrapped but the zstandard wheel is not"
                 " installed"
             )
-        return zstandard.ZstdDecompressor().decompress(data[4:])
+        with span("vss.deferred.inflate.zstd"):
+            return zstandard.ZstdDecompressor().decompress(data[4:])
     if data[:4] == LMAGIC:
-        return zlib.decompress(data[4:])
+        with span("vss.deferred.inflate.zlib"):
+            return zlib.decompress(data[4:])
     raise ValueError("not a deferred-compressed GOP")
 
 

@@ -57,6 +57,8 @@ import dataclasses
 import threading
 from typing import Deque, Iterable, List, Optional, Set, Tuple
 
+from repro_torch.obs.trace import span
+
 DEFAULT_QUEUE_GOPS = 32
 DEFAULT_WORKERS = 2
 
@@ -94,19 +96,21 @@ def publish_window(backend, catalog, window: PublishWindow) -> None:
     before any catalog row references it, then the whole window indexes
     in ONE transaction and the prefix horizon advances.  Used verbatim
     by the pipeline workers and by the blocking writer path."""
-    backend.batch_put(window.items)
-    # a write-back tier acknowledges batch_put at hot-admit speed;
-    # source-of-truth ingest must not index rows whose bytes exist only
-    # in a volatile cache — land THIS window's objects first (scoped:
-    # no-op for write-through, and other writers' queued uploads are
-    # not billed to this window's barrier)
-    backend.ensure_durable([key for key, _data in window.items])
-    tick = catalog.lru_clock()
-    catalog.add_gops(
-        [tuple(row[:6]) + (tick,) + tuple(row[6:]) for row in window.rows],
-        return_ids=False,
-    )
-    catalog.extend_physical_time(window.pid, window.t_end)
+    with span("vss.ingest.publish", parent=None):
+        backend.batch_put(window.items)
+        # a write-back tier acknowledges batch_put at hot-admit speed;
+        # source-of-truth ingest must not index rows whose bytes exist
+        # only in a volatile cache — land THIS window's objects first
+        # (scoped: no-op for write-through, and other writers' queued
+        # uploads are not billed to this window's barrier)
+        backend.ensure_durable([key for key, _data in window.items])
+        tick = catalog.lru_clock()
+        catalog.add_gops(
+            [tuple(row[:6]) + (tick,) + tuple(row[6:])
+             for row in window.rows],
+            return_ids=False,
+        )
+        catalog.extend_physical_time(window.pid, window.t_end)
 
 
 @dataclasses.dataclass
@@ -244,20 +248,21 @@ class IngestPipeline:
                 ch.settled += 1
                 self._count_published(window)
             return
+        def full() -> bool:
+            return (
+                not self._stop
+                and self._queued_gops > 0
+                and self._queued_gops + window.num_gops > self.queue_gops
+            )
+
         with self._cv:
             if ch.error is not None:
                 raise ch.error
-            waited = False
-            while (
-                not self._stop
-                and self._queued_gops > 0
-                and self._queued_gops + window.num_gops
-                > self.queue_gops
-            ):
-                if not waited:
-                    self._c_backpressure.inc()
-                    waited = True
-                self._cv.wait()
+            if full():
+                self._c_backpressure.inc()
+                with span("vss.ingest.backpressure", parent=None):
+                    while full():
+                        self._cv.wait()
             if self._stop:
                 raise RuntimeError("ingest pipeline is closed")
             if ch.error is not None:

@@ -4,8 +4,10 @@ exposition helpers.
 - `MetricsRegistry` / `default_registry` — counters, gauges, fixed-
   bucket histograms; exact per-component handles summed into process-
   wide series (``registry.py``).
-- `Tracer` / `Span` — per-`ReadSpec` plan→fetch→decode→admit span
-  trees with ring-buffer retention (``trace.py``).
+- `span` / `Tracer` / `Span` — timed regions mirrored onto the
+  profiler's clock while one records, and per-`ReadSpec`
+  plan→fetch→decode→admit span trees with ring-buffer retention
+  (``trace.py``).
 - `InstrumentedBackend` / `instrument_backend` — per-backend-kind op
   latency/bytes/error metrics, auto-applied by
   ``repro_torch.storage.make_backend`` (``instrument.py``).
@@ -25,7 +27,7 @@ from repro_torch.obs.registry import (
     MetricsRegistry,
     default_registry,
 )
-from repro_torch.obs.trace import DEFAULT_TRACE_CAPACITY, Span, Tracer
+from repro_torch.obs.trace import DEFAULT_TRACE_CAPACITY, Span, Tracer, span
 from repro_torch.obs.instrument import InstrumentedBackend, instrument_backend
 
 __all__ = [
@@ -40,6 +42,7 @@ __all__ = [
     "DEFAULT_TRACE_CAPACITY",
     "Span",
     "Tracer",
+    "span",
     "InstrumentedBackend",
     "instrument_backend",
 ]

@@ -6,6 +6,7 @@ import dataclasses
 import json
 import re
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -737,3 +738,244 @@ def test_metrics_smoke_workload_on_the_port(tmp_path):
         assert {"plan", "decode"} <= spans
     finally:
         vss.close()
+
+
+# ---------------------------------------------------------------------------
+# spans on the profiler's clock: `repro_torch.obs.span` mirrored as ranges
+# ---------------------------------------------------------------------------
+
+# names the benchmark's own ranges use; the program's never reuse them
+BENCHMARK_LABELS = {"vss.read", "vss.append", "vss.close", "vss.encode_gop",
+                    "vss.decode_gop"}
+
+
+def _coder():
+    from repro_torch.codec import tvc
+
+    return "zlib" if tvc.zstandard is None else "zstd"
+
+
+def _profiled(fn):
+    """Run ``fn`` under a CPU ``torch.profiler`` session over every
+    thread; return the ``vss.*`` host ranges as (name, thread, start,
+    end)."""
+    cfg = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            experimental_config=cfg) as prof:
+        fn()
+    return [(e.name(), e.start_thread_id(), e.start_ns(),
+             e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.name().startswith("vss.")]
+
+
+def _write_then_read_half_size(store, clip):
+    """A pipelined write, then a half-size read twice: the first decodes
+    and admits the view, the second is served from it."""
+    w = store.writer("v", fps=30.0, codec="tvc-med", gop_frames=5)
+    w.append(clip[:20])
+    w.close()
+    h, w_ = clip.shape[1:3]
+    for _ in range(2):
+        out = store.read("v", t=(0.0, 0.5), resolution=(w_ // 2, h // 2),
+                         cache=True)
+        assert out.frames.shape == (15, h // 2, w_ // 2, 3)
+    # an hevc view of the same seconds: decoded and encoded again
+    store.read("v", t=(0.0, 0.5), codec="hevc", cache=True)
+
+
+def test_profiler_sees_every_span_on_its_own_thread(tmp_path, clip):
+    store = VSS(str(tmp_path / "vss"), config=VSSConfig(
+        backend="memory", registry=MetricsRegistry()))
+    try:
+        ranges = _profiled(lambda: _write_then_read_half_size(store, clip))
+    finally:
+        store.close()
+    names = {n for n, *_ in ranges}
+    coder = _coder()
+    leaves = {
+        "vss.store.plan", "vss.store.fetch", "vss.store.resample_box",
+        "vss.store.admit_step_mse", "vss.store.admit_put",
+        "vss.store.admit_catalog", "vss.store.evict", "vss.store.compact",
+        "vss.codec.h2d", "vss.codec.d2h", f"vss.codec.deflate.{coder}",
+        f"vss.codec.inflate.{coder}", "vss.ingest.publish",
+        "vss.store.concat", "vss.writer.concat", "vss.codec.rgb_pack",
+        "vss.codec.rgb_unpack",
+    }
+    phases = {"vss.store.read_batch", "vss.store.decode",
+              "vss.writer.flush_gop"}
+    assert leaves | phases <= names, sorted((leaves | phases) - names)
+    for n in names:
+        assert not n.startswith("vss.kernel.") and n not in BENCHMARK_LABELS
+        assert n.count(".") >= 2  # vss.<layer>.<stage>
+    # every codec range runs inside a decode, an admission step or a GOP
+    # flush, on its own thread
+    outer = [r for r in ranges if r[0] == "vss.store.decode"
+             or r[0].startswith("vss.store.admit_")
+             or r[0] == "vss.writer.flush_gop"]
+    in_decode = 0
+    for n, th, a, b in ranges:
+        if not n.startswith("vss.codec."):
+            continue
+        hosts = [o for o in outer if o[1] == th and o[2] <= a and b <= o[3]]
+        assert hosts, (n, th)
+        in_decode += any(o[0] == "vss.store.decode" for o in hosts)
+    assert in_decode > 0
+    # the pipeline's worker publishes on a thread of its own
+    writer = {th for n, th, *_ in ranges if n == "vss.writer.flush_gop"}
+    workers = {th for n, th, *_ in ranges if n == "vss.ingest.publish"}
+    assert workers and not workers & writer
+
+
+def test_backpressure_span_only_while_the_writer_blocks(tmp_path, clip):
+    from repro_torch.core.config import IngestConfig
+
+    def run(queue_gops):
+        store = VSS(str(tmp_path / f"q{queue_gops}"), config=VSSConfig(
+            backend="memory", registry=MetricsRegistry(),
+            ingest=IngestConfig(workers=1, queue_gops=queue_gops)))
+        done = threading.Event()
+
+        def write():
+            w = store.writer("v", fps=30.0, codec="tvc-hi", gop_frames=5)
+            w.append(clip[:10])  # two GOPs: the second waits on a full queue
+            w.close()
+            done.set()
+
+        def body():
+            store.ingest.pause()
+            t = threading.Thread(target=write)
+            t.start()
+            for _ in range(2000):
+                if store.ingest.stats().backpressure_waits or done.is_set():
+                    break
+                done.wait(0.005)
+            store.ingest.resume()
+            t.join(timeout=60)
+            assert not t.is_alive() and done.is_set()
+
+        try:
+            ranges = _profiled(body)
+            return ranges, store.ingest.stats().backpressure_waits
+        finally:
+            store.close()
+
+    ranges, waits = run(queue_gops=1)
+    assert waits == 1
+    blocked = [r for r in ranges if r[0] == "vss.ingest.backpressure"]
+    assert len(blocked) == 1
+    assert blocked[0][1] in {th for n, th, *_ in ranges
+                             if n == "vss.writer.flush_gop"}
+    ranges, waits = run(queue_gops=64)
+    assert waits == 0
+    assert "vss.ingest.backpressure" not in {n for n, *_ in ranges}
+
+
+def test_deferred_compression_spans_name_the_coder():
+    from repro_torch.core import deferred
+
+    data = bytes(range(256)) * 64
+    coder = "zlib" if deferred.zstandard is None else "zstd"
+    ranges = _profiled(
+        lambda: deferred.unwrap_bytes(deferred.wrap_bytes(data, 3)))
+    assert [n for n, *_ in ranges] == [f"vss.deferred.deflate.{coder}",
+                                       f"vss.deferred.inflate.{coder}"]
+
+
+def test_no_record_function_without_a_profiler(tmp_path, clip, monkeypatch):
+    """Structural, no clock: with no profiler recording, a write and a
+    read (trees on) never construct a profiler range."""
+    import torch.autograd.profiler as autograd_profiler
+
+    calls = []
+
+    class Counting:
+        def __init__(self, name, *args):
+            calls.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(autograd_profiler, "record_function", Counting)
+    monkeypatch.setattr(torch.profiler, "record_function", Counting)
+    store = VSS(str(tmp_path / "vss"), config=VSSConfig(
+        backend="memory", registry=MetricsRegistry()))
+    try:
+        _write_then_read_half_size(store, clip)
+        assert calls == []
+        assert store.recent_traces()  # the trees were built all the same
+        # the same path with the flag up does mirror: the stub is the one
+        # the spans would call
+        monkeypatch.setattr(autograd_profiler, "_is_profiler_enabled", True)
+        store.read("v", t=(0.0, 0.5), cache=False)
+    finally:
+        store.close()
+    assert "vss.store.decode" in calls and "vss.store.fetch" in calls
+
+
+def test_read_tree_grandchildren_are_measured(tmp_path, clip):
+    """A half-size miss: the root keeps plan/fetch/decode/admit children;
+    below decode and admit, each stage is a measured span, and they sum
+    to at most their parent."""
+    store = VSS(str(tmp_path / "vss"), config=VSSConfig(
+        backend="memory", registry=MetricsRegistry()))
+    try:
+        _write_then_read_half_size(store, clip)
+        roots = store.recent_traces()
+    finally:
+        store.close()
+    assert len(roots) == 3
+    miss = roots[0]
+    assert {c["name"] for c in miss["children"]} == {
+        "plan", "fetch", "decode", "admit"}
+    below = {}
+    for child in miss["children"]:
+        kids = child.get("children", [])
+        below[child["name"]] = {g["name"] for g in kids}
+        assert sum(g["dur_s"] for g in kids) <= child["dur_s"]
+        for g in kids:
+            assert g["dur_s"] > 0.0
+    coder = _coder()
+    assert {"fetch", "h2d", "d2h", f"inflate.{coder}",
+            "resample_box"} <= below["decode"]
+    assert {"admit_step_mse", "admit_put", "admit_catalog"} <= below["admit"]
+    # the inline fetch summary holds the round trips its decode made
+    decode = next(c for c in miss["children"] if c["name"] == "decode")
+    fetch = next(c for c in miss["children"] if c["name"] == "fetch")
+    trips = [g for g in decode["children"] if g["name"] == "fetch"]
+    assert fetch["attrs"]["inline"] is True
+    assert fetch["dur_s"] >= sum(g["dur_s"] for g in trips) > 0.0
+    # the hevc view: decoded, then encoded again, below its decode span
+    hevc = next(c for c in roots[2]["children"] if c["name"] == "decode")
+    assert {f"inflate.{coder}", f"deflate.{coder}", "h2d", "d2h"} <= {
+        g["name"] for g in hevc["children"]}
+
+
+def test_a_timed_span_measures_with_no_tree_and_no_profiler(monkeypatch):
+    """``timed=True`` (the store's fetch and plan seconds) measures the
+    region even where no tree node is built and no profiler records, and
+    still constructs no profiler range; untimed, such a span is the
+    shared null context."""
+    import torch.autograd.profiler as autograd_profiler
+
+    from repro_torch.obs import span
+
+    calls = []
+
+    class Counting:
+        def __init__(self, name, *args):
+            calls.append(name)
+
+    monkeypatch.setattr(autograd_profiler, "record_function", Counting)
+    timed = span("vss.store.fetch", parent=None, timed=True)
+    with timed as node:
+        time.sleep(0.002)
+    assert node is None
+    assert timed.seconds >= 0.002
+    assert calls == []
+    assert span("vss.store.fetch", parent=None) is span(
+        "vss.store.plan", parent=None)

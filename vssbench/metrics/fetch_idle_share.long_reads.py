@@ -1,0 +1,7 @@
+"""Share of the window in which the card idled while the read path waited
+on a backend round trip, %, by the program's spans on the device trace."""
+from vssbench import span_idle
+
+
+def read(run):
+    return span_idle.idle_pct(run, span_idle.FETCH)
