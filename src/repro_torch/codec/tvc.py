@@ -28,10 +28,15 @@ verbatim against this store.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
+import functools
 import json
+import os
+import threading
 import zlib
-from typing import Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +47,7 @@ except ImportError:  # pragma: no cover - environment-dependent
     zstandard = None
 
 from repro_torch.kernels import ops
+from repro_torch.obs.registry import default_registry
 from repro_torch.obs.trace import span
 
 RGB = "rgb"  # raw uncompressed uint8 frames
@@ -139,14 +145,18 @@ _ZSTD_FRAME_MAGIC = b"\x28\xb5\x2f\xfd"
 _DEFLATE = "vss.codec.deflate." + ("zlib" if zstandard is None else "zstd")
 
 
-def _zstd(data: bytes, level: int) -> bytes:
+def _zstd(data, level: int) -> bytes:
+    """``data``: any C-contiguous buffer."""
     with span(_DEFLATE):
         if zstandard is not None:
             return zstandard.ZstdCompressor(level=level).compress(data)
         return zlib.compress(data, min(max(level, 1), 9))
 
 
-def _unzstd(data: bytes) -> bytes:
+def _unzstd(data: bytes, size: int) -> bytes:
+    """``size``: the raw bytes the stream holds, so zlib allocates its
+    output once (and releases the GIL once, which lets pooled chunks
+    inflate side by side)."""
     if data[:4] == _ZSTD_FRAME_MAGIC:
         if zstandard is None:
             raise RuntimeError(
@@ -156,7 +166,87 @@ def _unzstd(data: bytes) -> bytes:
         with span("vss.codec.inflate.zstd"):
             return zstandard.ZstdDecompressor().decompress(data)
     with span("vss.codec.inflate.zlib"):
-        return zlib.decompress(data)
+        return zlib.decompress(data, bufsize=size)
+
+
+# The entropy stage codes a chunked GOP's frames on one process-wide pool
+# of host threads (zlib and zstd release the GIL while they code, and the
+# chunks are independent streams, so the bytes are the same) once the
+# GOP's chunks average at least this many raw bytes.  On an H100 host
+# (zlib) a hand-off costs 15 us a chunk in a GOP's burst, 2.3 % of
+# inflating 256 KiB of a 4K residual plane and 5.7 % of 128 KiB
+# (PERF.md, section 6).  Smaller GOPs (small frames, small tiles)
+# stay on the caller's thread.
+POOL_MIN_CHUNK_BYTES = 256 << 10
+
+_pool: Optional[ThreadPoolExecutor] = None
+_pool_lock = threading.Lock()
+
+
+def _pool_width() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity on this platform
+        return os.cpu_count() or 1
+
+
+@functools.lru_cache(maxsize=None)
+def _entropy_gops(stage: str, mode: str):
+    return default_registry().counter(
+        "vss_codec_entropy_gops_total",
+        "GOPs whose chunks the codec's entropy stage coded, by direction"
+        " and by whether they ran on the host thread pool or inline",
+        labels={"stage": stage, "mode": mode})
+
+
+@functools.lru_cache(maxsize=None)
+def _pool_threads_gauge():
+    return default_registry().gauge(
+        "vss_codec_entropy_pool_threads",
+        "threads of the codec's entropy host pool, once it is made")
+
+
+def _entropy_pool() -> ThreadPoolExecutor:
+    """The shared pool, made at first use as wide as the CPUs this
+    process may run on.  Its tasks are single coder calls that never
+    submit to it, so callers on any number of threads cannot deadlock
+    it."""
+    global _pool
+    with _pool_lock:
+        if _pool is None:
+            width = _pool_width()
+            _pool = ThreadPoolExecutor(
+                width, thread_name_prefix="vss-entropy")
+            _pool_threads_gauge().set(width)
+        return _pool
+
+
+def _forget_pool_after_fork() -> None:
+    # a forked child has the pool object but none of its threads
+    global _pool, _pool_lock
+    _pool = None
+    _pool_lock = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_forget_pool_after_fork)
+
+
+def _code_chunks(fn: Callable, jobs: List[tuple], raw_bytes: int,
+                 stage: str) -> List[bytes]:
+    """``[fn(*job) for job in jobs]``, one job a chunk, in order: on the
+    entropy pool when there are two chunks or more and they average at
+    least ``POOL_MIN_CHUNK_BYTES`` of the GOP's ``raw_bytes``, else
+    inline.  Each pooled call runs in a copy of the caller's context, so
+    its span joins the caller's trace tree (a read's decode node); a
+    coder's error is raised here as it was raised there."""
+    if len(jobs) < 2 or raw_bytes < len(jobs) * POOL_MIN_CHUNK_BYTES:
+        _entropy_gops(stage, "inline").inc()
+        return [fn(*job) for job in jobs]
+    _entropy_gops(stage, "pool").inc()
+    pool = _entropy_pool()
+    futures = [pool.submit(contextvars.copy_context().run, fn, *job)
+               for job in jobs]
+    return [f.result() for f in futures]
 
 
 def _resid_torch_dtype(tier: Tier) -> torch.dtype:
@@ -206,11 +296,10 @@ def _chunked_gop(
     resid: np.ndarray,
     tier: Tier,
 ) -> EncodedGOP:
-    chunks = [_zstd(iframe_u8.tobytes(), tier.zstd_level)]
-    chunks.extend(
-        _zstd(resid[i].tobytes(), tier.zstd_level)
-        for i in range(resid.shape[0])
-    )
+    planes = [np.ascontiguousarray(iframe_u8)]
+    planes.extend(np.ascontiguousarray(r) for r in resid)
+    chunks = _code_chunks(_zstd, [(p, tier.zstd_level) for p in planes],
+                          iframe_u8.nbytes + resid.nbytes, "deflate")
     offsets = [0]
     for ch in chunks:
         offsets.append(offsets[-1] + len(ch))
@@ -221,13 +310,18 @@ def _raw_payload(enc: EncodedGOP) -> bytearray:
     """Decompressed ``iframe_u8 ++ residuals`` bytes for a TVC GOP,
     whatever its payload format (chunked v2 or legacy single-stream).
     A bytearray, so tensors can view it without a copy."""
+    t, h, w, c = enc.shape
+    isz = h * w * c
+    rsz = isz * TIERS[enc.codec].resid_bits // 8
+    raw_bytes = isz + (t - 1) * rsz
     if enc.offsets is not None:
         off = enc.offsets
-        return bytearray().join(
-            _unzstd(enc.payload[off[i]:off[i + 1]])
-            for i in range(len(off) - 1)
-        )
-    return bytearray(_unzstd(enc.payload))
+        jobs = [(enc.payload[off[i]:off[i + 1]], isz if i == 0 else rsz)
+                for i in range(len(off) - 1)]
+    else:
+        jobs = [(enc.payload, raw_bytes)]
+    return bytearray().join(_code_chunks(_unzstd, jobs, raw_bytes,
+                                         "inflate"))
 
 
 def _planes(enc: EncodedGOP, tier: Tier, device: str):

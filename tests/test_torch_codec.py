@@ -2,12 +2,19 @@
 be byte-identical (magic, header JSON, per-frame offsets, entropy-chunk
 flag, tier table), and a blob from either package decodes bit-exactly
 in the other."""
+import sys
+import threading
+import zlib
+
 import numpy as np
 import pytest
 import torch
 
 from repro import codec as jcodec
+from repro.codec import tvc as jtvc
 from repro_torch import codec as tcodec
+from repro_torch.codec import tvc as ttvc
+from repro_torch.obs.registry import default_registry
 
 # the suite runs in several worker processes at once: one intra-op
 # thread each keeps torch's CPU thread pools from oversubscribing cores
@@ -128,3 +135,158 @@ def test_cuda_is_the_default_device():
     clip = _clip(7, t=2, h=8, w=8)
     with pytest.raises((RuntimeError, AssertionError)):
         tcodec.encode_gop(clip, "tvc-hi")
+
+
+# ---------------------------------------------------------------------------
+# the entropy stage on the host thread pool: same bytes, same errors
+# ---------------------------------------------------------------------------
+CODED_TIERS = ["tvc-ll", "tvc-hi", "tvc-med", "tvc-lo"]
+# each chunk of a 720p frame is above the pool's threshold
+BIG = dict(t=4, h=720, w=1280)
+
+
+@pytest.fixture(scope="module")
+def big_clip():
+    return _clip(11, **BIG)
+
+
+@pytest.fixture(params=["machine", "zlib"])
+def coder(request, monkeypatch):
+    """The machine's coder (zstd where the wheel is installed), and zlib
+    (the card's: its Python has no zstandard) in both packages."""
+    if request.param == "zlib":
+        monkeypatch.setattr(ttvc, "zstandard", None)
+        monkeypatch.setattr(jtvc, "zstandard", None)
+    return request.param
+
+
+def _gops(stage, mode):
+    return default_registry().value("vss_codec_entropy_gops_total",
+                                    {"stage": stage, "mode": mode})
+
+
+def _inline(monkeypatch):
+    """Keep every GOP on the caller's thread: the loop before the pool."""
+    monkeypatch.setattr(ttvc, "POOL_MIN_CHUNK_BYTES", 1 << 62)
+
+
+def test_big_shape_is_above_the_threshold():
+    isz = BIG["h"] * BIG["w"] * 3
+    assert isz >= ttvc.POOL_MIN_CHUNK_BYTES
+    assert 24 * 40 * 3 < ttvc.POOL_MIN_CHUNK_BYTES  # `_clip`'s default
+
+
+@pytest.mark.parametrize("tier", CODED_TIERS)
+def test_pooled_blob_equals_inline_and_reference(tier, coder, big_clip,
+                                                 monkeypatch):
+    before = _gops("deflate", "pool")
+    pooled = tcodec.serialize_gop(tcodec.encode_gop(big_clip, tier,
+                                                    device="cpu"))
+    assert _gops("deflate", "pool") == before + 1
+    assert pooled == jcodec.serialize_gop(jcodec.encode_gop(big_clip, tier))
+    with monkeypatch.context() as m:
+        _inline(m)
+        inline = tcodec.serialize_gop(tcodec.encode_gop(big_clip, tier,
+                                                        device="cpu"))
+    assert _gops("deflate", "pool") == before + 1
+    assert pooled == inline
+    assert pooled[:4] == b"TVC2"
+
+
+@pytest.mark.parametrize("tier", CODED_TIERS)
+def test_pooled_inflate_round_trips_with_prefixes(tier, coder, big_clip):
+    enc = tcodec.encode_gop(big_clip, tier, device="cpu")
+    blob = tcodec.serialize_gop(enc)
+    jenc = jcodec.deserialize_gop(blob)
+    ref = jcodec.decode_gop(jenc)
+    before = _gops("inflate", "pool")
+    assert np.array_equal(
+        tcodec.decode_gop(tcodec.deserialize_gop(blob), device="cpu"), ref)
+    assert _gops("inflate", "pool") == before + 1
+    for hi in (2, 3):
+        prefix = tcodec.prefix_gop(enc, hi)
+        assert np.array_equal(tcodec.decode_gop(prefix, device="cpu"),
+                              jcodec.decode_gop(jcodec.prefix_gop(jenc, hi)))
+    assert _gops("inflate", "pool") == before + 3
+    if tier == "tvc-ll":  # lossless: the prefix is the clip's own frames
+        assert np.array_equal(ref, big_clip)
+
+
+@pytest.mark.parametrize("stage", ["deflate", "inflate"])
+def test_pool_engages_by_size_alone(stage, big_clip):
+    """A GOP of small frames, or of one chunk, stays inline; a GOP whose
+    chunks are large goes to the pool, once a GOP whatever its chunks."""
+    cases = [(_clip(12), "inline"), (big_clip[:1], "inline"),
+             (big_clip, "pool")]
+    for frames, mode in cases:
+        enc = None if stage == "deflate" else tcodec.encode_gop(
+            frames, "tvc-hi", device="cpu")
+        pool, inline = _gops(stage, "pool"), _gops(stage, "inline")
+        if enc is None:
+            tcodec.encode_gop(frames, "tvc-hi", device="cpu")
+        else:
+            tcodec.decode_gop(enc, device="cpu")
+        assert (_gops(stage, "pool") - pool,
+                _gops(stage, "inline") - inline) == (
+            (1, 0) if mode == "pool" else (0, 1)), (frames.shape, mode)
+    assert default_registry().value("vss_codec_entropy_pool_threads") \
+        == ttvc._pool_width()
+
+
+def _corrupt_chunk(blob, i):
+    """The blob with chunk ``i``'s stream overwritten (its length and a
+    zstd frame's magic kept), so the offsets still hold."""
+    _, _, off, start = tcodec.parse_gop_header(blob)
+    a, b = start + off[i], start + off[i + 1]
+    keep = 4 if blob[a:a + 4] == b"\x28\xb5\x2f\xfd" else 0
+    return blob[:a + keep] + b"\xff" * (b - a - keep) + blob[b:]
+
+
+@pytest.mark.parametrize("chunk", [0, 2])
+def test_corrupt_chunk_raises_as_before(chunk, coder, big_clip,
+                                        monkeypatch):
+    blob = _corrupt_chunk(tcodec.serialize_gop(tcodec.encode_gop(
+        big_clip, "tvc-med", device="cpu")), chunk)
+    errors = []
+    for inline in (False, True):
+        with monkeypatch.context() as m:
+            if inline:
+                _inline(m)
+            with pytest.raises(Exception) as exc:
+                tcodec.decode_gop(tcodec.deserialize_gop(blob), device="cpu")
+            errors.append(exc.type)
+    with pytest.raises(Exception) as exc:
+        jcodec.decode_gop(jcodec.deserialize_gop(blob))
+    errors.append(exc.type)
+    assert len(set(errors)) == 1, errors
+    coders = (zlib.error,) + ((ttvc.zstandard.ZstdError,)
+                              if ttvc.zstandard is not None else ())
+    assert issubclass(errors[0], coders)
+
+
+def test_concurrent_encodes_equal_serial_ones(big_clip):
+    """Writers on several threads share the one pool: each gets the
+    blobs a serial encode gives, under a short switch interval."""
+    clips = [big_clip, big_clip[:, ::-1].copy(), 255 - big_clip]
+    serial = [tcodec.serialize_gop(tcodec.encode_gop(c, "tvc-med",
+                                                     device="cpu"))
+              for c in clips]
+    got = {}
+
+    def write(k):
+        got[k] = [tcodec.serialize_gop(tcodec.encode_gop(
+            c, "tvc-med", device="cpu")) for c in clips]
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=write, args=(k,))
+                   for k in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert [got[k] for k in range(3)] == [serial] * 3

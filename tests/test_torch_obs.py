@@ -955,6 +955,56 @@ def test_read_tree_grandchildren_are_measured(tmp_path, clip):
         g["name"] for g in hevc["children"]}
 
 
+def test_pooled_entropy_spans_stay_under_the_decode(tmp_path, clip):
+    """Frames large enough for the codec's entropy pool: inside a read,
+    every chunk's inflate and deflate node hangs under the read's decode
+    node though a pool thread coded it; under a profiler their ranges
+    keep their names and come from the pool's threads, never from the
+    thread that decodes."""
+    from repro_torch.codec import tvc
+    from repro_torch.obs.registry import default_registry
+
+    big = np.ascontiguousarray(np.tile(clip[:8], (1, 8, 10, 1)))
+    assert big[0].nbytes >= tvc.POOL_MIN_CHUNK_BYTES
+    store = VSS(str(tmp_path / "vss"), config=VSSConfig(
+        backend="memory", registry=MetricsRegistry()))
+
+    def pooled():
+        return [default_registry().value(
+            "vss_codec_entropy_gops_total", {"stage": s, "mode": "pool"})
+            for s in ("inflate", "deflate")]
+
+    try:
+        w = store.writer("v", fps=30.0, codec="tvc-med", gop_frames=4)
+        w.append(big)
+        w.close()
+        before = pooled()
+        ranges = _profiled(lambda: store.read(
+            "v", t=(0.0, 8 / 30), codec="hevc", cache=True))
+        after = pooled()
+        root = store.recent_traces()[-1]
+    finally:
+        store.close()
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    coder = _coder()
+    entropy = {f"vss.codec.inflate.{coder}", f"vss.codec.deflate.{coder}"}
+    # the tree: each chunk a node under the decode node
+    decode = next(c for c in root["children"] if c["name"] == "decode")
+    nodes = [g["name"] for g in decode["children"]]
+    for name in entropy:
+        stage = name.split(".", 2)[2]
+        assert nodes.count(stage) >= 4 and nodes.count(stage) % 4 == 0, (
+            stage, nodes)
+    # the profiler: the same names, on threads other than the decode's
+    decoding = {th for n, th, *_ in ranges if n == "vss.store.decode"}
+    coders = {th for n, th, *_ in ranges if n in entropy}
+    assert entropy <= {n for n, *_ in ranges}
+    assert decoding and coders and not coders & decoding
+    # a pooled chunk's range lies inside the decode's extent
+    (a0, b0), = {(a, b) for n, _, a, b in ranges if n == "vss.store.decode"}
+    assert all(a0 <= a and b <= b0 for n, _, a, b in ranges if n in entropy)
+
+
 def test_a_timed_span_measures_with_no_tree_and_no_profiler(monkeypatch):
     """``timed=True`` (the store's fetch and plan seconds) measures the
     region even where no tree node is built and no profiler records, and
