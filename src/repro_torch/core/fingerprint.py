@@ -12,6 +12,10 @@ Brute-forcing all O(n²) GOP pairs is prohibitive, so VSS:
         sharing ≥ m unambiguous feature correspondences (Lowe-ratio
         disambiguated, distance ≤ d),
   (iv)  hands surviving pairs to Algorithm 1.
+
+Spans (``repro_torch.obs.span``): ``vss.joint.fingerprint`` around each
+GOP's fingerprint, ``vss.joint.correspond`` around each pair's feature
+count.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.core import features as F
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import span
 
 HIST_BINS = 16
 
@@ -32,11 +37,12 @@ def gop_fingerprint(frames: np.ndarray, bins: int = HIST_BINS, *,
     """L1-normalized per-channel color histogram of a GOP's first frame.
     ``device`` counts it: ``"cuda"`` (the default) launches the histogram
     kernel on the uint8 frame, ``"cpu"`` runs its plain version."""
-    x = torch.from_numpy(np.ascontiguousarray(frames[:1])).to(device)
-    planar = torch.movedim(x, -1, 1).contiguous()  # (1, C, H, W) uint8
-    hist = ops.histogram(planar, bins=bins).cpu().numpy()[0]  # (C, bins)
-    v = hist.reshape(-1).astype(np.float32)
-    return v / max(v.sum(), 1.0)
+    with span("vss.joint.fingerprint"):
+        x = torch.from_numpy(np.ascontiguousarray(frames[:1])).to(device)
+        planar = torch.movedim(x, -1, 1).contiguous()  # (1, C, H, W) uint8
+        hist = ops.histogram(planar, bins=bins).cpu().numpy()[0]  # (C, bins)
+        v = hist.reshape(-1).astype(np.float32)
+        return v / max(v.sum(), 1.0)
 
 
 @dataclasses.dataclass
@@ -136,9 +142,10 @@ class CandidateIndex:
                     a, b = members[i], members[j]
                     if (a, b) in exclude or (b, a) in exclude:
                         continue
-                    n = F.count_correspondences(
-                        self.frames[a], self.frames[b]
-                    )
+                    with span("vss.joint.correspond"):
+                        n = F.count_correspondences(
+                            self.frames[a], self.frames[b]
+                        )
                     if n >= self.min_matches:
                         out.append((a, b, n))
         out.sort(key=lambda t: -t[2])

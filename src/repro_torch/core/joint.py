@@ -20,11 +20,20 @@ Given two overlapping GOPs F and G, VSS stores the overlap only once:
 
 Reads reverse the process: side-a GOPs are [left ++ overlap]; side-b
 GOPs re-project the composite through H and append the right slice.
+
+Spans (``repro_torch.obs.span``): ``vss.joint.estimate`` around each
+homography search (the first and a re-estimate), ``vss.joint.verify``
+around the per-frame warp, PSNR and slicing loop, ``vss.joint.encode``
+around the slices' encodes and puts and ``vss.joint.reconstruct`` around
+a read's rebuild of one GOP (the last two are phases: the codec's spans
+nest in them).  Each pair Algorithm 1 runs on counts once in the
+store's ``vss_joint_pairs_total{outcome}`` (`OUTCOMES`), and each pair
+stored jointly adds its two GOPs to ``vss_joint_gops_total``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +43,21 @@ from repro_torch.core import features as F
 from repro_torch.core.quality import exact_psnr
 from repro_torch.core.types import JOINT_ABORT_DB
 from repro_torch.kernels import ops
+from repro_torch.obs.trace import span
 
 DUPLICATE_EPS = 0.1  # ‖H−I‖ cutoff (prototype ε = 1/10)
+# what Algorithm 1 made of a pair: stored jointly, a pointer to its
+# duplicate, aborted by the verify step, or no usable homography
+JOINT, DUPLICATE, ABORT, NO_H = "joint", "duplicate", "abort", "no_h"
+OUTCOMES = (JOINT, DUPLICATE, ABORT, NO_H)
+
+
+class JointCounters(NamedTuple):
+    """A store's joint-pass counters (``VSS.joint_counters``)."""
+
+    pairs: Dict[str, object]  # outcome -> vss_joint_pairs_total{outcome}
+    candidates: object  # vss_joint_candidates_total
+    gops: object  # vss_joint_gops_total
 
 
 # ---------------------------------------------------------------------------
@@ -149,26 +171,27 @@ def _estimate_h_verified(fi, gi, width, height, device,
     from several RANSAC seeds in both match directions (forward H(g→f)
     and inverted H(f→g)⁻¹) — repeated-texture aliases survive feature
     voting but score terribly photometrically."""
-    cands = []
-    for seed in seeds:
-        h = F.estimate_homography(fi, gi, seed=seed)
-        if h is not None:
-            cands.append(h)
-        h_rev = F.estimate_homography(gi, fi, seed=seed)
-        if h_rev is not None:
-            try:
-                inv = np.linalg.inv(h_rev)
-                cands.append((inv / inv[2, 2]).astype(np.float32))
-            except np.linalg.LinAlgError:
-                pass
-    best_h, best_s = None, -1.0
-    for h in cands:
-        if np.linalg.norm(h - np.eye(3)) <= DUPLICATE_EPS:
-            return h  # duplicate short-circuits: exactness beats score
-        s = _photometric_score(fi, gi, h, width, height, device)
-        if s > best_s:
-            best_h, best_s = h, s
-    return best_h
+    with span("vss.joint.estimate"):
+        cands = []
+        for seed in seeds:
+            h = F.estimate_homography(fi, gi, seed=seed)
+            if h is not None:
+                cands.append(h)
+            h_rev = F.estimate_homography(gi, fi, seed=seed)
+            if h_rev is not None:
+                try:
+                    inv = np.linalg.inv(h_rev)
+                    cands.append((inv / inv[2, 2]).astype(np.float32))
+                except np.linalg.LinAlgError:
+                    pass
+        best_h, best_s = None, -1.0
+        for h in cands:
+            if np.linalg.norm(h - np.eye(3)) <= DUPLICATE_EPS:
+                return h  # duplicate short-circuits: exactness beats score
+            s = _photometric_score(fi, gi, h, width, height, device)
+            if s > best_s:
+                best_h, best_s = h, s
+        return best_h
 
 
 def joint_compress_frames(
@@ -183,22 +206,38 @@ def joint_compress_frames(
 ) -> Optional[JointResult]:
     """Algorithm 1 (joint projection). Returns None on abort.  The warps
     run on ``device``; everything else is host numpy."""
+    return _joint_compress(f_frames, g_frames, merge=merge, tau_db=tau_db,
+                           seed=seed, device=device, _reversed=_reversed)[0]
+
+
+def _joint_compress(
+    f_frames: np.ndarray,
+    g_frames: np.ndarray,
+    *,
+    merge: str,
+    tau_db: float,
+    device: str,
+    seed: int = 0,
+    _reversed: bool = False,
+) -> Tuple[Optional[JointResult], str]:
+    """`joint_compress_frames` and its outcome (one of `OUTCOMES`)."""
     t, height, width, c = f_frames.shape
     if g_frames.shape != f_frames.shape:
-        return None
+        return None, NO_H
     h = _estimate_h_verified(f_frames[0], g_frames[0], width, height,
                              device)
     if h is None:
-        return None  # no homography found
+        return None, NO_H  # no homography found
     if h[0, 2] < 0 and not _reversed:
         # g extends to the left of f: reverse the transform
-        return joint_compress_frames(
+        return _joint_compress(
             g_frames, f_frames, merge=merge, tau_db=tau_db, seed=seed,
             device=device, _reversed=True,
         )
     if np.linalg.norm(h - np.eye(3)) <= DUPLICATE_EPS:
         # §5.1.1 duplicate frames: pointer, no pixels stored
-        return JointResult([], True, _reversed, float("inf"), float("inf"))
+        return JointResult([], True, _reversed, float("inf"),
+                           float("inf")), DUPLICATE
 
     segments: List[JointSegment] = []
     psnr_f_all, psnr_g_all = [], []
@@ -217,50 +256,53 @@ def joint_compress_frames(
 
     seg = open_segment(0, h)
     if seg is None:
-        return None
+        return None, NO_H
     i = 0
     reestimated_for_frame = False
-    while i < t:
-        fi, gi = f_frames[i], g_frames[i]
-        hinv = np.linalg.inv(seg.h)
-        g_in_f = warp_frames(gi[None], hinv, device=device)[0]
-        f_over = fi[:, seg.x_f :]
-        o = merge_overlap(f_over, g_in_f[:, seg.x_f :], merge)
-        left = fi[:, : seg.x_f]
-        right = gi[:, seg.x_g :]
-        # verify recovery quality (Algorithm 1 verify step)
-        f_rec, g_rec = reconstruct_pair(
-            left[None], o[None], right[None], seg.h, seg.x_g, device=device
-        )
-        pf = exact_psnr(f_rec[0], fi)
-        pg = exact_psnr(g_rec[0], gi)
-        if min(pf, pg) < tau_db:
-            if not reestimated_for_frame:
-                # §5.1.2: re-estimate homography, start a new segment
-                h_new = _estimate_h_verified(fi, gi, width, height, device)
-                reestimated_for_frame = True
-                if h_new is not None:
-                    if seg.num_frames > 0:
-                        segments.append(seg)
-                    new_seg = open_segment(i, h_new)
-                    if new_seg is not None:
-                        seg = new_seg
-                        continue
-            return None  # abort joint compression (second failure)
-        reestimated_for_frame = False
-        seg.left = np.concatenate([seg.left, left[None]])
-        seg.overlap = np.concatenate([seg.overlap, o[None]])
-        seg.right = np.concatenate([seg.right, right[None]])
-        seg.num_frames += 1
-        psnr_f_all.append(pf)
-        psnr_g_all.append(pg)
-        i += 1
+    with span("vss.joint.verify"):
+        while i < t:
+            fi, gi = f_frames[i], g_frames[i]
+            hinv = np.linalg.inv(seg.h)
+            g_in_f = warp_frames(gi[None], hinv, device=device)[0]
+            f_over = fi[:, seg.x_f :]
+            o = merge_overlap(f_over, g_in_f[:, seg.x_f :], merge)
+            left = fi[:, : seg.x_f]
+            right = gi[:, seg.x_g :]
+            # verify recovery quality (Algorithm 1 verify step)
+            f_rec, g_rec = reconstruct_pair(
+                left[None], o[None], right[None], seg.h, seg.x_g,
+                device=device
+            )
+            pf = exact_psnr(f_rec[0], fi)
+            pg = exact_psnr(g_rec[0], gi)
+            if min(pf, pg) < tau_db:
+                if not reestimated_for_frame:
+                    # §5.1.2: re-estimate homography, start a new segment
+                    h_new = _estimate_h_verified(fi, gi, width, height,
+                                                 device)
+                    reestimated_for_frame = True
+                    if h_new is not None:
+                        if seg.num_frames > 0:
+                            segments.append(seg)
+                        new_seg = open_segment(i, h_new)
+                        if new_seg is not None:
+                            seg = new_seg
+                            continue
+                return None, ABORT  # second failure: abort the pair
+            reestimated_for_frame = False
+            seg.left = np.concatenate([seg.left, left[None]])
+            seg.overlap = np.concatenate([seg.overlap, o[None]])
+            seg.right = np.concatenate([seg.right, right[None]])
+            seg.num_frames += 1
+            psnr_f_all.append(pf)
+            psnr_g_all.append(pg)
+            i += 1
     if seg.num_frames > 0:
         segments.append(seg)
     return JointResult(
         segments, False, _reversed,
         float(np.mean(psnr_f_all)), float(np.mean(psnr_g_all)),
-    )
+    ), JOINT
 
 
 # ---------------------------------------------------------------------------
@@ -301,8 +343,10 @@ def jointly_compress_gops(
             gop_a_id, gop_b_id = gop_b_id, gop_a_id
         g_scale = fa.shape[2] / fb.shape[2]
         fb = resample(fb, (fa.shape[2], fa.shape[1]), device=store.device)
-    res = joint_compress_frames(fa, fb, merge=merge, tau_db=tau_db,
-                                device=store.device)
+    res, outcome = _joint_compress(fa, fb, merge=merge, tau_db=tau_db,
+                                   device=store.device)
+    counters = store.joint_counters()
+    counters.pairs[outcome].inc()
     if res is None:
         return None
     if res.reversed:
@@ -321,6 +365,7 @@ def jointly_compress_gops(
         # b's pixels are freed; it becomes a pointer to a
         store.backend.delete(gb.path)
         cat.update_gop(gop_b_id, joint_ref=joint_id, nbytes=0)
+        counters.gops.inc(2)
         return joint_id
 
     seg_meta = []
@@ -329,30 +374,31 @@ def jointly_compress_gops(
     joint_id = cat.add_joint(
         gop_a_id, gop_b_id, merge, [], nbytes=0, g_scale=g_scale
     )
-    for k, seg in enumerate(res.segments):
-        paths = {}
-        for part_name, arr in (
-            ("left", seg.left), ("overlap", seg.overlap),
-            ("right", seg.right),
-        ):
-            enc = _codec.encode_gop(arr, codec_name, device=store.device)
-            key = f"_joint/{joint_id}_s{k}_{part_name}.tvc"
-            data = _codec.serialize_gop(enc)
-            store.backend.put(key, data)
-            paths[part_name] = key
-            total_bytes += len(data)
-            if part_name in ("left", "overlap"):
-                a_bytes += len(data)
-        seg_meta.append(
-            {
-                "start": seg.start,
-                "num_frames": seg.num_frames,
-                "h": np.asarray(seg.h, np.float64).reshape(-1).tolist(),
-                "x_f": seg.x_f,
-                "x_g": seg.x_g,
-                "paths": paths,
-            }
-        )
+    with span("vss.joint.encode"):
+        for k, seg in enumerate(res.segments):
+            paths = {}
+            for part_name, arr in (
+                ("left", seg.left), ("overlap", seg.overlap),
+                ("right", seg.right),
+            ):
+                enc = _codec.encode_gop(arr, codec_name, device=store.device)
+                key = f"_joint/{joint_id}_s{k}_{part_name}.tvc"
+                data = _codec.serialize_gop(enc)
+                store.backend.put(key, data)
+                paths[part_name] = key
+                total_bytes += len(data)
+                if part_name in ("left", "overlap"):
+                    a_bytes += len(data)
+            seg_meta.append(
+                {
+                    "start": seg.start,
+                    "num_frames": seg.num_frames,
+                    "h": np.asarray(seg.h, np.float64).reshape(-1).tolist(),
+                    "x_f": seg.x_f,
+                    "x_g": seg.x_g,
+                    "paths": paths,
+                }
+            )
     with cat._lock:
         cat._conn.execute(
             "UPDATE joint SET segments=?, nbytes=? WHERE id=?",
@@ -366,11 +412,17 @@ def jointly_compress_gops(
     store.backend.delete(gb.path)
     cat.update_gop(gop_a_id, joint_ref=joint_id, nbytes=a_bytes)
     cat.update_gop(gop_b_id, joint_ref=joint_id, nbytes=b_bytes)
+    counters.gops.inc(2)
     return joint_id
 
 
 def reconstruct_gop(store, gop) -> np.ndarray:
     """Rebuild a jointly-compressed GOP's frames (read path hook)."""
+    with span("vss.joint.reconstruct"):
+        return _reconstruct_gop(store, gop)
+
+
+def _reconstruct_gop(store, gop) -> np.ndarray:
     from repro_torch.core.store import resample
 
     cat = store.catalog

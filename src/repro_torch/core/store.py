@@ -505,6 +505,7 @@ class VSS:
             self.backend.configure_concurrency(max(1, self.ingest_workers))
         self._ingest: Optional[_ingest.IngestPipeline] = None
         self._ingest_init = threading.Lock()
+        self._m_joint = None  # joint_counters(), at the first joint pass
         # -- workload-adaptive format management (profile.py) -------------
         self.profiler: Optional[_profile.AccessProfiler] = None
         self.adaptive: Optional[_profile.AdaptivePolicy] = None
@@ -1604,7 +1605,9 @@ class VSS:
                     owner[g.gop_id] = name
         joint_ids: List[int] = []
         used: set = set()
-        for a, b, _n in index.find_pairs():
+        pairs = index.find_pairs()
+        self.joint_counters().candidates.inc(len(pairs))
+        for a, b, _n in pairs:
             if len(joint_ids) >= max_pairs:
                 break
             if a in used or b in used:
@@ -1619,6 +1622,27 @@ class VSS:
                 used.add(a)
                 used.add(b)
         return joint_ids
+
+    def joint_counters(self):
+        """The joint pass's counters in the store's registry
+        (`joint.JointCounters`), registered at the first joint pass, so a
+        store that never runs one exposes none of them."""
+        if self._m_joint is None:
+            from repro_torch.core.joint import OUTCOMES, JointCounters
+
+            reg = self.registry
+            self._m_joint = JointCounters(
+                pairs={o: reg.counter(
+                    "vss_joint_pairs_total",
+                    "GOP pairs Algorithm 1 ran on, by its outcome",
+                    labels={"outcome": o}) for o in OUTCOMES},
+                candidates=reg.counter(
+                    "vss_joint_candidates_total",
+                    "GOP pairs the candidate search returned"),
+                gops=reg.counter("vss_joint_gops_total",
+                                 "GOPs the joint pass stored jointly"),
+            )
+        return self._m_joint
 
     # -- cache admission (§4) ----------------------------------------------
     def _admit(
