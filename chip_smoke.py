@@ -1942,7 +1942,8 @@ JOINT_STEPS = ("write", "compress pair A", "compress pair B", "read a_l",
 # apply_joint_compression's split: what each part times (module, name)
 JOINT_SPLIT = {
     "decode": ((codec, "decode_gop"),),
-    "host features": ((features, "estimate_homography"),
+    "host features": ((features, "frame_features"),
+                      (features, "estimate_homography"),
                       (features, "count_correspondences")),
     "warp": ((joint, "warp_frames"),),
     "histogram": ((fingerprint, "gop_fingerprint"),),

@@ -8,11 +8,15 @@ for normalized intensity patches — both plain array math. Homography
 estimation is DLT + RANSAC.  A copy of ``repro.core.features``: host
 numpy, the same on every device.
 
-All functions take (H, W, C) uint8 frames.
+All functions take (H, W, C) uint8 frames.  A `FeatureMemo` keeps each
+frame's corners and descriptors (`frame_features`) for one joint pass,
+computed once, inside whichever span (a count's, a search's) first
+looks the frame up.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import hashlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -22,6 +26,12 @@ PATCH = 8  # descriptor patch half-size → (2*PATCH)² dims
 LOWE_RATIO = 0.8  # Lowe's ratio disambiguation (§5.1.3)
 FEATURE_DIST = 400.0  # paper's d=400 Euclidean cutoff
 MIN_MATCHES = 20  # paper's m=20 correspondences
+SEARCH_CORNERS = 300  # corners a frame brings to a homography search
+COUNT_CORNERS = 200  # corners a frame brings to a correspondence count
+
+# (N, 2) float32 keypoints, strongest first, and their (N, (2*PATCH)²)
+# float32 descriptors (`frame_features`)
+Features = Tuple[np.ndarray, np.ndarray]
 
 
 def to_gray(img: np.ndarray) -> np.ndarray:
@@ -54,7 +64,10 @@ def detect_corners(
     img: np.ndarray, max_corners: int = 200, border: int = PATCH + 1
 ) -> np.ndarray:
     """Returns (N, 2) float32 (x, y) keypoints, strongest first."""
-    gray = to_gray(img)
+    return _corners(to_gray(img), max_corners, border)
+
+
+def _corners(gray: np.ndarray, max_corners: int, border: int) -> np.ndarray:
     r = harris_response(gray)
     # non-max suppression over a (2*NMS_RADIUS+1)² window
     h, w = r.shape
@@ -78,7 +91,10 @@ def detect_corners(
 
 def describe(img: np.ndarray, keypoints: np.ndarray) -> np.ndarray:
     """Normalized intensity-patch descriptors, (N, (2*PATCH)²) float32."""
-    gray = to_gray(img)
+    return _describe(to_gray(img), keypoints)
+
+
+def _describe(gray: np.ndarray, keypoints: np.ndarray) -> np.ndarray:
     descs = []
     for x, y in keypoints:
         xi, yi = int(round(x)), int(round(y))
@@ -92,6 +108,18 @@ def describe(img: np.ndarray, keypoints: np.ndarray) -> np.ndarray:
         if descs
         else np.zeros((0, (2 * PATCH) ** 2), np.float32)
     )
+
+
+def frame_features(
+    img: np.ndarray, max_corners: int = SEARCH_CORNERS
+) -> Features:
+    """A frame's (keypoints, descriptors): `detect_corners` and `describe`
+    on one grayscale conversion.  Row k of either depends only on the
+    k-th strongest corner, so the first n rows are what ``max_corners=n``
+    gives."""
+    gray = to_gray(img)
+    keypoints = _corners(gray, max_corners, PATCH + 1)
+    return keypoints, _describe(gray, keypoints)
 
 
 def match_descriptors(
@@ -202,36 +230,83 @@ def ransac_homography(
     return h
 
 
-def estimate_homography(
-    f: np.ndarray, g: np.ndarray, *, max_corners: int = 300, seed: int = 0
-) -> Optional[np.ndarray]:
-    """H mapping g's pixel coordinates into f's (``f(H@x) ≈ g(x)``).
-
-    Returns None when no confident homography exists (Algorithm 1 then
-    aborts joint compression for the pair).
-    """
-    ka = detect_corners(f, max_corners)
-    kb = detect_corners(g, max_corners)
-    da = describe(f, ka)
-    db = describe(g, kb)
+def match_points(fa: Features, fb: Features) -> Tuple[np.ndarray,
+                                                    np.ndarray]:
+    """(src, dst): the keypoints of fb and of fa that match, row for row,
+    as float32 (N, 2).  Mutual matches, or one-directional ratio matches
+    where fewer than m are mutual."""
+    (ka, da), (kb, db) = fa, fb
     matches = match_descriptors(da, db, mutual=True)
     if len(matches) < MIN_MATCHES:
         # mutual filtering can starve low-texture pairs; fall back to
         # one-directional ratio matches (RANSAC handles extra outliers)
         matches = match_descriptors(da, db, mutual=False)
-    if len(matches) < MIN_MATCHES:
+    src = np.array([kb[j] for _, j in matches], np.float32).reshape(-1, 2)
+    dst = np.array([ka[i] for i, _ in matches], np.float32).reshape(-1, 2)
+    return src, dst
+
+
+def estimate_homography(
+    f: np.ndarray, g: np.ndarray, *, max_corners: int = SEARCH_CORNERS,
+    seed: int = 0,
+    points: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+) -> Optional[np.ndarray]:
+    """H mapping g's pixel coordinates into f's (``f(H@x) ≈ g(x)``).
+
+    ``points`` is ``match_points`` of the two frames' `frame_features`
+    at ``max_corners``, where the caller has it; otherwise it is computed
+    here.  Returns None when no confident homography exists (Algorithm 1
+    then aborts joint compression for the pair).
+    """
+    if points is None:
+        points = match_points(frame_features(f, max_corners),
+                              frame_features(g, max_corners))
+    src, dst = points  # g coords, f coords
+    if len(src) < MIN_MATCHES:
         return None
-    src = np.array([kb[j] for _, j in matches], np.float32)  # g coords
-    dst = np.array([ka[i] for i, _ in matches], np.float32)  # f coords
     return ransac_homography(src, dst, seed=seed)
 
 
-def count_correspondences(f: np.ndarray, g: np.ndarray) -> int:
-    """Number of unambiguous nearby feature correspondences (§5.1.3)."""
-    ka = detect_corners(f)
-    kb = detect_corners(g)
-    da, db = describe(f, ka), describe(g, kb)
-    n = len(match_descriptors(da, db, mutual=True))
-    if n < MIN_MATCHES:
-        n = len(match_descriptors(da, db, mutual=False))
-    return n
+def count_correspondences(
+    f: np.ndarray, g: np.ndarray, *,
+    features: Optional[Tuple[Features, Features]] = None,
+) -> int:
+    """Number of unambiguous nearby feature correspondences (§5.1.3).
+    ``features`` is the two frames' `frame_features` at
+    `COUNT_CORNERS` corners or more, where the caller has them."""
+    if features is None:
+        features = (frame_features(f, COUNT_CORNERS),
+                    frame_features(g, COUNT_CORNERS))
+    fa, fb = ((k[:COUNT_CORNERS], d[:COUNT_CORNERS]) for k, d in features)
+    return len(match_points(fa, fb)[0])
+
+
+# what a `FeatureMemo` lookup did
+COMPUTED, REUSED = "computed", "reused"
+MEMO_OUTCOMES = (COMPUTED, REUSED)
+
+
+class FeatureMemo:
+    """Each frame's `frame_features`, computed once and handed to every
+    later lookup of an equal frame: one joint pass's correspondence
+    counts and homography searches share it.  Keyed by the frame's bytes,
+    shape and dtype, since a pass decodes a GOP anew for each pair.
+    ``counters`` (outcome -> a counter with ``inc``) counts each lookup
+    under one of `MEMO_OUTCOMES`."""
+
+    def __init__(self, counters: Optional[Dict[str, object]] = None):
+        self._features: Dict[tuple, Features] = {}
+        self._counters = counters or {}
+
+    def lookup(self, img: np.ndarray) -> Features:
+        img = np.ascontiguousarray(img)
+        key = (img.shape, img.dtype.str,
+               hashlib.blake2b(img, digest_size=16).digest())
+        found = self._features.get(key)
+        outcome = REUSED
+        if found is None:
+            outcome = COMPUTED
+            found = self._features[key] = frame_features(img)
+        if outcome in self._counters:
+            self._counters[outcome].inc()
+        return found

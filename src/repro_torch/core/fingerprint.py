@@ -15,7 +15,10 @@ Brute-forcing all O(n²) GOP pairs is prohibitive, so VSS:
 
 Spans (``repro_torch.obs.span``): ``vss.joint.fingerprint`` around each
 GOP's fingerprint, ``vss.joint.correspond`` around each pair's feature
-count.
+count.  The index looks up each counted keyframe's features in a
+`features.FeatureMemo` (the pass's, or one of its own), so a keyframe's
+corners and descriptors are computed at its first count, inside that
+count's span, and every later count of it only matches.
 """
 from __future__ import annotations
 
@@ -113,11 +116,13 @@ class CandidateIndex:
         birch_threshold: float = 0.15,
         min_matches: int = F.MIN_MATCHES,
         device: str = "cuda",
+        features: Optional[F.FeatureMemo] = None,
     ):
         self.birch = BirchLite(birch_threshold)
         self.frames: Dict[int, np.ndarray] = {}  # key → first frame
         self.min_matches = min_matches
         self.device = device
+        self.features = features or F.FeatureMemo()
 
     def add_gop(self, key: int, frames: np.ndarray) -> None:
         fp = gop_fingerprint(frames, device=self.device)
@@ -142,10 +147,11 @@ class CandidateIndex:
                     a, b = members[i], members[j]
                     if (a, b) in exclude or (b, a) in exclude:
                         continue
+                    fa, fb = self.frames[a], self.frames[b]
                     with span("vss.joint.correspond"):
-                        n = F.count_correspondences(
-                            self.frames[a], self.frames[b]
-                        )
+                        feats = (self.features.lookup(fa),
+                                 self.features.lookup(fb))
+                        n = F.count_correspondences(fa, fb, features=feats)
                     if n >= self.min_matches:
                         out.append((a, b, n))
         out.sort(key=lambda t: -t[2])

@@ -29,6 +29,12 @@ a read's rebuild of one GOP (the last two are phases: the codec's spans
 nest in them).  Each pair Algorithm 1 runs on counts once in the
 store's ``vss_joint_pairs_total{outcome}`` (`OUTCOMES`), and each pair
 stored jointly adds its two GOPs to ``vss_joint_gops_total``.
+
+A store's pass hands one `features.FeatureMemo` to the candidate search
+and to every search here, so a frame's corners and descriptors are
+computed once a pass; each lookup counts in
+``vss_joint_features_total{outcome=computed|reused}``.  A search then
+matches each direction once and runs every RANSAC seed on those matches.
 """
 from __future__ import annotations
 
@@ -58,6 +64,7 @@ class JointCounters(NamedTuple):
     pairs: Dict[str, object]  # outcome -> vss_joint_pairs_total{outcome}
     candidates: object  # vss_joint_candidates_total
     gops: object  # vss_joint_gops_total
+    features: Dict[str, object]  # outcome -> vss_joint_features_total
 
 
 # ---------------------------------------------------------------------------
@@ -166,18 +173,23 @@ def _photometric_score(fi, gi, h, width, height, device) -> float:
 
 
 def _estimate_h_verified(fi, gi, width, height, device,
-                         seeds=(0, 1, 2, 3)):
+                         seeds=(0, 1, 2, 3), features=None):
     """Best-of-K candidates by photometric verification. Candidates come
     from several RANSAC seeds in both match directions (forward H(g→f)
     and inverted H(f→g)⁻¹) — repeated-texture aliases survive feature
-    voting but score terribly photometrically."""
+    voting but score terribly photometrically.  Both frames' features
+    come from the ``features`` memo (a fresh one if none is given), and
+    each direction is matched once for all seeds."""
+    features = features or F.FeatureMemo()
     with span("vss.joint.estimate"):
+        fa, fb = features.lookup(fi), features.lookup(gi)
+        fwd, rev = F.match_points(fa, fb), F.match_points(fb, fa)
         cands = []
         for seed in seeds:
-            h = F.estimate_homography(fi, gi, seed=seed)
+            h = F.estimate_homography(fi, gi, seed=seed, points=fwd)
             if h is not None:
                 cands.append(h)
-            h_rev = F.estimate_homography(gi, fi, seed=seed)
+            h_rev = F.estimate_homography(gi, fi, seed=seed, points=rev)
             if h_rev is not None:
                 try:
                     inv = np.linalg.inv(h_rev)
@@ -219,20 +231,24 @@ def _joint_compress(
     device: str,
     seed: int = 0,
     _reversed: bool = False,
+    features: Optional[F.FeatureMemo] = None,
 ) -> Tuple[Optional[JointResult], str]:
-    """`joint_compress_frames` and its outcome (one of `OUTCOMES`)."""
+    """`joint_compress_frames` and its outcome (one of `OUTCOMES`);
+    ``features`` is the pass's memo (a fresh one if none is given),
+    handed to every search."""
+    features = features or F.FeatureMemo()
     t, height, width, c = f_frames.shape
     if g_frames.shape != f_frames.shape:
         return None, NO_H
     h = _estimate_h_verified(f_frames[0], g_frames[0], width, height,
-                             device)
+                             device, features=features)
     if h is None:
         return None, NO_H  # no homography found
     if h[0, 2] < 0 and not _reversed:
         # g extends to the left of f: reverse the transform
         return _joint_compress(
             g_frames, f_frames, merge=merge, tau_db=tau_db, seed=seed,
-            device=device, _reversed=True,
+            device=device, _reversed=True, features=features,
         )
     if np.linalg.norm(h - np.eye(3)) <= DUPLICATE_EPS:
         # §5.1.1 duplicate frames: pointer, no pixels stored
@@ -279,7 +295,7 @@ def _joint_compress(
                 if not reestimated_for_frame:
                     # §5.1.2: re-estimate homography, start a new segment
                     h_new = _estimate_h_verified(fi, gi, width, height,
-                                                 device)
+                                                 device, features=features)
                     reestimated_for_frame = True
                     if h_new is not None:
                         if seg.num_frames > 0:
@@ -316,12 +332,13 @@ def jointly_compress_gops(
     *,
     merge: str = "unprojected",
     tau_db: float = JOINT_ABORT_DB,
+    features: Optional[F.FeatureMemo] = None,
 ) -> Optional[int]:
     """Apply joint compression to two stored GOPs; returns joint id.
 
     Mixed resolutions are handled by upscaling the smaller GOP to the
     larger one's geometry first (§5.1.2); the scale is recorded so reads
-    can downsample back.
+    can downsample back.  ``features`` is the pass's memo.
     """
     from repro_torch.core.store import resample  # local import (cycle)
 
@@ -344,7 +361,7 @@ def jointly_compress_gops(
         g_scale = fa.shape[2] / fb.shape[2]
         fb = resample(fb, (fa.shape[2], fa.shape[1]), device=store.device)
     res, outcome = _joint_compress(fa, fb, merge=merge, tau_db=tau_db,
-                                   device=store.device)
+                                   device=store.device, features=features)
     counters = store.joint_counters()
     counters.pairs[outcome].inc()
     if res is None:

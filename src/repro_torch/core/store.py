@@ -1587,10 +1587,14 @@ class VSS:
         """Find overlapping GOP pairs across logical videos and jointly
         compress them. Returns the created joint record ids."""
         from repro_torch.core import joint as _joint
+        from repro_torch.core.features import FeatureMemo
         from repro_torch.core.fingerprint import CandidateIndex
 
         names = list(names or self.catalog.list_logical())
-        index = CandidateIndex(device=self.device)
+        # each frame's features once a pass, shared by the candidate
+        # search and Algorithm 1; dropped when the pass returns
+        memo = FeatureMemo(self.joint_counters().features)
+        index = CandidateIndex(device=self.device, features=memo)
         owner: Dict[int, str] = {}
         for name in names:
             for p in self.catalog.physicals_for(name):
@@ -1615,7 +1619,7 @@ class VSS:
             if owner[a] == owner[b]:
                 continue  # pairs must span different logical videos (§5.1)
             jid = _joint.jointly_compress_gops(
-                self, a, b, merge=merge, tau_db=tau_db
+                self, a, b, merge=merge, tau_db=tau_db, features=memo
             )
             if jid is not None:
                 joint_ids.append(jid)
@@ -1628,6 +1632,7 @@ class VSS:
         (`joint.JointCounters`), registered at the first joint pass, so a
         store that never runs one exposes none of them."""
         if self._m_joint is None:
+            from repro_torch.core.features import MEMO_OUTCOMES
             from repro_torch.core.joint import OUTCOMES, JointCounters
 
             reg = self.registry
@@ -1641,6 +1646,11 @@ class VSS:
                     "GOP pairs the candidate search returned"),
                 gops=reg.counter("vss_joint_gops_total",
                                  "GOPs the joint pass stored jointly"),
+                features={o: reg.counter(
+                    "vss_joint_features_total",
+                    "frame feature lookups of the joint pass, by whether"
+                    " the features were computed or reused",
+                    labels={"outcome": o}) for o in MEMO_OUTCOMES},
             )
         return self._m_joint
 
