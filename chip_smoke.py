@@ -254,8 +254,9 @@ from repro_torch.core.config import (  # noqa: E402
 )
 from repro_torch.core.deferred import is_wrapped, unwrap_bytes  # noqa: E402
 from repro_torch.core.quality import exact_mse, exact_psnr  # noqa: E402
+from repro_torch.core.resize import resample  # noqa: E402
 from repro_torch.core.spec import ReadSpec, WriteSpec  # noqa: E402
-from repro_torch.core.store import VSS, resample  # noqa: E402
+from repro_torch.core.store import VSS  # noqa: E402
 from repro_torch.core.types import tile_keys  # noqa: E402
 from repro_torch.data.tokens import (  # noqa: E402
     TokenPipeline,
@@ -1222,7 +1223,7 @@ def _subgop_faults(vss, sizes, spy) -> dict:
         frames, origin = load_tiles(*a, **kw)
         return np.roll(frames, 1, axis=2), origin
 
-    def short(g, hi, io=None):  # a prefix one frame short
+    def short(g, hi, io):  # a prefix one frame short
         return load_prefix(g, hi - 1, io)
 
     for label, attr, fault in (

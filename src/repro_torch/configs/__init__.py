@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, List
 
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
@@ -69,10 +68,6 @@ def smoke_config(name: str) -> ArchConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{canonical_arch(name)}")
     return mod.SMOKE
-
-
-def all_configs() -> Dict[str, ArchConfig]:
-    return {a: get_config(a) for a in ARCH_IDS}
 
 
 def _shrink(

@@ -13,7 +13,8 @@ from repro_torch.core.ingest import (  # noqa: F401
 )
 from repro_torch.core.profile import AccessProfiler, AdaptivePolicy  # noqa: F401
 from repro_torch.core.spec import ReadSpec, ResolvedRead, WriteSpec  # noqa: F401
-from repro_torch.core.store import VSS, ReadResult, VSSWriter, resample  # noqa: F401
+from repro_torch.core.resize import resample  # noqa: F401
+from repro_torch.core.store import VSS, ReadResult, VSSWriter  # noqa: F401
 from repro_torch.core.types import (  # noqa: F401
     DEFAULT_QUALITY_EPS_DB,
     Fragment,

@@ -577,6 +577,18 @@ class Catalog:
             self._conn.commit()
             return cur.lastrowid
 
+    def set_joint_segments(
+        self, joint_id: int, segments, nbytes: int
+    ) -> None:
+        """Record a joint pair's segment objects and their bytes, once
+        they are stored."""
+        with self._lock:
+            self._conn.execute(
+                "UPDATE joint SET segments=?, nbytes=? WHERE id=?",
+                (json.dumps(segments), nbytes, joint_id),
+            )
+            self._conn.commit()
+
     def get_joint(self, joint_id: int):
         with self._lock:
             row = self._conn.execute(

@@ -194,15 +194,6 @@ class CostModel:
         return objects * latency + per_byte * nbytes
 
 
-def lookback_cost(
-    independent_not_decoded: int,
-    dependent_not_decoded: int,
-    eta: float = ETA,
-) -> float:
-    """c_l(Ω, f) = |A − Ω| + η·|(Δ − A) − Ω| (in frames)."""
-    return independent_not_decoded + eta * dependent_not_decoded
-
-
 # ---------------------------------------------------------------------------
 # install-time calibration (the paper's vbench step, against TVC)
 # ---------------------------------------------------------------------------

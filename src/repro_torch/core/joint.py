@@ -47,6 +47,7 @@ import torch
 from repro_torch import codec as _codec
 from repro_torch.core import features as F
 from repro_torch.core.quality import exact_psnr
+from repro_torch.core.resize import resample
 from repro_torch.core.types import JOINT_ABORT_DB
 from repro_torch.kernels import ops
 from repro_torch.obs.trace import span
@@ -172,15 +173,14 @@ def _photometric_score(fi, gi, h, width, height, device) -> float:
     return min(exact_psnr(f_rec[0], fi), exact_psnr(g_rec[0], gi))
 
 
-def _estimate_h_verified(fi, gi, width, height, device,
-                         seeds=(0, 1, 2, 3), features=None):
+def _estimate_h_verified(fi, gi, width, height, device, *,
+                         features: F.FeatureMemo, seeds=(0, 1, 2, 3)):
     """Best-of-K candidates by photometric verification. Candidates come
     from several RANSAC seeds in both match directions (forward H(g→f)
     and inverted H(f→g)⁻¹) — repeated-texture aliases survive feature
     voting but score terribly photometrically.  Both frames' features
-    come from the ``features`` memo (a fresh one if none is given), and
-    each direction is matched once for all seeds."""
-    features = features or F.FeatureMemo()
+    come from the ``features`` memo, and each direction is matched once
+    for all seeds."""
     with span("vss.joint.estimate"):
         fa, fb = features.lookup(fi), features.lookup(gi)
         fwd, rev = F.match_points(fa, fb), F.match_points(fb, fa)
@@ -217,9 +217,11 @@ def joint_compress_frames(
     _reversed: bool = False,
 ) -> Optional[JointResult]:
     """Algorithm 1 (joint projection). Returns None on abort.  The warps
-    run on ``device``; everything else is host numpy."""
+    run on ``device``; everything else is host numpy.  Its searches
+    share one feature memo."""
     return _joint_compress(f_frames, g_frames, merge=merge, tau_db=tau_db,
-                           seed=seed, device=device, _reversed=_reversed)[0]
+                           seed=seed, device=device, _reversed=_reversed,
+                           features=F.FeatureMemo())[0]
 
 
 def _joint_compress(
@@ -229,14 +231,12 @@ def _joint_compress(
     merge: str,
     tau_db: float,
     device: str,
+    features: F.FeatureMemo,
     seed: int = 0,
     _reversed: bool = False,
-    features: Optional[F.FeatureMemo] = None,
 ) -> Tuple[Optional[JointResult], str]:
     """`joint_compress_frames` and its outcome (one of `OUTCOMES`);
-    ``features`` is the pass's memo (a fresh one if none is given),
-    handed to every search."""
-    features = features or F.FeatureMemo()
+    ``features`` is the pass's memo, handed to every search."""
     t, height, width, c = f_frames.shape
     if g_frames.shape != f_frames.shape:
         return None, NO_H
@@ -338,17 +338,17 @@ def jointly_compress_gops(
 
     Mixed resolutions are handled by upscaling the smaller GOP to the
     larger one's geometry first (§5.1.2); the scale is recorded so reads
-    can downsample back.  ``features`` is the pass's memo.
+    can downsample back.  ``features`` is the store pass's memo; a call
+    for one pair alone makes its own.
     """
-    from repro_torch.core.store import resample  # local import (cycle)
-
+    features = features or F.FeatureMemo()
     cat = store.catalog
     ga = cat.get_gop(gop_a_id)
     gb = cat.get_gop(gop_b_id)
     if ga.joint_ref or gb.joint_ref:
         return None
-    fa = store._load_gop_frames(ga)
-    fb = store._load_gop_frames(gb)
+    fa = store.gop_frames(ga)
+    fb = store.gop_frames(gb)
     if fa.shape[0] != fb.shape[0]:
         return None
     g_scale = 1.0
@@ -416,12 +416,7 @@ def jointly_compress_gops(
                     "paths": paths,
                 }
             )
-    with cat._lock:
-        cat._conn.execute(
-            "UPDATE joint SET segments=?, nbytes=? WHERE id=?",
-            (__import__("json").dumps(seg_meta), total_bytes, joint_id),
-        )
-        cat._conn.commit()
+    cat.set_joint_segments(joint_id, seg_meta, total_bytes)
     # original GOP objects are replaced by the joint pieces; byte
     # accounting assigns left+overlap to a, right to b
     b_bytes = total_bytes - a_bytes
@@ -440,45 +435,14 @@ def reconstruct_gop(store, gop) -> np.ndarray:
 
 
 def _reconstruct_gop(store, gop) -> np.ndarray:
-    from repro_torch.core.store import resample
-
     cat = store.catalog
     rec = cat.get_joint(gop.joint_ref)
     side_a = rec["gop_a"] == gop.gop_id
     if rec["duplicate"]:
-        partner = cat.get_gop(rec["gop_a"])
-        frames = store._load_gop_frames(partner)
-        if not side_a and rec["g_scale"] != 1.0:
-            s = rec["g_scale"]
-            frames = resample(
-                frames,
-                (int(round(frames.shape[2] / s)),
-                 int(round(frames.shape[1] / s))),
-                device=store.device,
-            )
-        return frames
-    pieces = []
-    for seg in rec["segments"]:
-        parts = ["left", "overlap"] if side_a else ["left", "overlap",
-                                                    "right"]
-        blobs = store.backend.batch_get([seg["paths"][p] for p in parts])
-        decoded = {
-            p: _codec.decode_gop(_codec.deserialize_gop(b),
-                                 device=store.device)
-            for p, b in zip(parts, blobs)
-        }
-        left, over = decoded["left"], decoded["overlap"]
-        h = np.asarray(seg["h"], np.float64).reshape(3, 3).astype(np.float32)
-        if side_a:
-            pieces.append(np.concatenate([left, over], axis=2))
-        else:
-            f_comp = np.concatenate([left, over], axis=2)
-            g_over = warp_frames(
-                f_comp, h, out_hw=(f_comp.shape[1], seg["x_g"]),
-                device=store.device,
-            )
-            pieces.append(np.concatenate([g_over, decoded["right"]], axis=2))
-    frames = np.concatenate(pieces, axis=0)
+        frames = store.gop_frames(cat.get_gop(rec["gop_a"]))
+    else:
+        frames = np.concatenate([_segment_frames(store, seg, side_a)
+                                 for seg in rec["segments"]], axis=0)
     if not side_a and rec["g_scale"] != 1.0:
         s = rec["g_scale"]
         frames = resample(
@@ -488,3 +452,21 @@ def _reconstruct_gop(store, gop) -> np.ndarray:
             device=store.device,
         )
     return frames
+
+
+def _segment_frames(store, seg, side_a: bool) -> np.ndarray:
+    """One joint segment's frames of side a ([left ++ overlap]) or of
+    side b (the composite re-projected through H, ++ right)."""
+    parts = ["left", "overlap"] if side_a else ["left", "overlap", "right"]
+    blobs = store.backend.batch_get([seg["paths"][p] for p in parts])
+    decoded = {
+        p: _codec.decode_gop(_codec.deserialize_gop(b), device=store.device)
+        for p, b in zip(parts, blobs)
+    }
+    f_comp = np.concatenate([decoded["left"], decoded["overlap"]], axis=2)
+    if side_a:
+        return f_comp
+    h = np.asarray(seg["h"], np.float64).reshape(3, 3).astype(np.float32)
+    g_over = warp_frames(f_comp, h, out_hw=(f_comp.shape[1], seg["x_g"]),
+                         device=store.device)
+    return np.concatenate([g_over, decoded["right"]], axis=2)

@@ -51,20 +51,23 @@ from collections.abc import Mapping as _Mapping
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch import codec as _codec
 from repro_torch import obs as _obs
 from repro_torch import storage as _storage
 from repro_torch.core import compact as _compact
 from repro_torch.core import ingest as _ingest
+from repro_torch.core import joint as _joint
 from repro_torch.core import profile as _profile
 from repro_torch.core.cache import CacheManager
 from repro_torch.core.catalog import Catalog
 from repro_torch.core.config import VSSConfig, check_device, config_from_legacy
 from repro_torch.core.cost import ETA, CostModel, calibration_path
 from repro_torch.core.deferred import DeferredCompressor, is_wrapped, unwrap_bytes
+from repro_torch.core.features import MEMO_OUTCOMES, FeatureMemo
+from repro_torch.core.fingerprint import CandidateIndex
 from repro_torch.core.quality import QualityEstimator, exact_mse
+from repro_torch.core.resize import resample
 from repro_torch.core.select import (
     SegmentChoice,
     Selection,
@@ -154,6 +157,13 @@ class Run:
         return self.gops[-1].end_time(self.physical.fps, self.physical.t_start)
 
 
+def _stored_gop(data: bytes) -> _codec.EncodedGOP:
+    """A stored GOP object's bytes, unwrapped where deferred compression
+    wrapped them, as a GOP."""
+    return _codec.deserialize_gop(unwrap_bytes(data) if is_wrapped(data)
+                                  else data)
+
+
 class _CatalogSnapshot:
     """One catalog round-trip per (video, table) per batch: candidate
     generation for N concurrent specs on the same video shares these
@@ -195,87 +205,113 @@ class _BatchIO:
     shared by several overlapping specs is fetched once and decoded
     once.
 
+    Decoded frames go in through ``keep``, which counts the decode, and
+    come out through ``lookup``, under one key: ``(gop_id, tile, hi)``,
+    ``tile`` the ``(r, c)`` of a tiled GOP's object (None untiled) and
+    ``hi`` the end of a prefix ``[0, hi)`` (None for every frame).
+
     ``stream=True`` (the single-spec ``read()``/``read_spec`` path)
     keeps the counters but retains nothing: each blob and decoded GOP
     is used and dropped, preserving the pre-batch peak-memory profile
     while fetch/decode telemetry still flows into the spec's trace.
 
-    Telemetry per instance: ``objects_fetched`` / ``bytes_fetched`` /
-    ``fetch_seconds`` cover every backend round-trip issued through
-    this context; ``fetched_sizes`` records each key's blob size on
-    first fetch (`VSS._read_batch` attributes group fetches back to
-    individual specs from it); ``claimed`` tracks which planned keys
-    have already been attributed; ``gops_decoded`` counts real decodes
-    (cache hits are free)."""
+    Telemetry per instance: ``totals`` covers every decode and every
+    backend round-trip issued through this context; ``claim`` tells
+    which planned keys `VSS._read_batch` has already attributed to a
+    spec's share of a group fetch."""
 
     def __init__(self, backend: _storage.StorageBackend, *,
                  stream: bool = False):
         self.backend = backend
-        self.stream = stream
-        self.blobs: Dict[str, bytes] = {}
-        self.decoded: Dict[int, np.ndarray] = {}  # gop_id -> frames
-        self.objects_fetched = 0
-        self.bytes_fetched = 0
-        self.fetch_seconds = 0.0
-        self.gops_decoded = 0
-        self.fetched_sizes: Dict[str, int] = {}
-        self.claimed: set = set()
+        self._stream = stream
+        self._blobs: Dict[str, bytes] = {}
+        self._decoded: Dict[tuple, np.ndarray] = {}
+        self._claimed: set = set()
+        self._gops_decoded = 0
+        self._objects = 0
+        self._bytes = 0
+        self._seconds = 0.0
 
-    def _fetch(self, keys: List[str]) -> List[bytes]:
-        fs = _obs.span("vss.store.fetch", objects=len(keys), timed=True)
-        with fs:
-            blobs = self.backend.batch_get(keys)
-        self.fetch_seconds += fs.seconds
-        self.objects_fetched += len(keys)
-        for k, b in zip(keys, blobs):
-            self.bytes_fetched += len(b)
-            self.fetched_sizes.setdefault(k, len(b))
-        return blobs
+    def totals(self) -> Tuple[int, int, int, float]:
+        """(GOPs decoded, objects fetched, bytes fetched, fetch seconds)
+        so far."""
+        return self._gops_decoded, self._objects, self._bytes, self._seconds
 
-    def remember(self, gop_id: int, frames: np.ndarray) -> None:
+    def lookup(self, gop_id: int, tile: Optional[Tuple[int, int]] = None,
+               hi: Optional[int] = None) -> Optional[np.ndarray]:
+        """The frames kept under ``(gop_id, tile, hi)``, or None; a
+        prefix is also cut from the whole object's frames."""
+        whole = self._decoded.get((gop_id, tile, None))
+        if whole is not None:
+            return whole if hi is None else whole[:hi]
+        return self._decoded.get((gop_id, tile, hi))
+
+    def keep(self, frames: np.ndarray, gop_id: int,
+             tile: Optional[Tuple[int, int]] = None,
+             hi: Optional[int] = None) -> np.ndarray:
         """Count a decode; retain the frames for cross-spec sharing
         unless streaming."""
-        self.gops_decoded += 1
-        if not self.stream:
-            self.decoded[gop_id] = frames
+        self._gops_decoded += 1
+        if not self._stream:
+            self._decoded[(gop_id, tile, hi)] = frames
+        return frames
 
-    def prefetch(self, keys: Sequence[str]) -> None:
-        missing = [k for k in dict.fromkeys(keys) if k not in self.blobs]
-        if missing:
-            self.blobs.update(zip(missing, self._fetch(missing)))
+    def held(self, key: str) -> Optional[bytes]:
+        """The whole object under ``key`` if this batch fetched it."""
+        return self._blobs.get(key)
+
+    def claim(self, key: str) -> bool:
+        """Claim a planned ``key`` for a spec's fetch span: False if the
+        batch already fetched or claimed it."""
+        if key in self._blobs or key in self._claimed:
+            return False
+        self._claimed.add(key)
+        return True
+
+    def _fetch(self, keys: Sequence[str], call) -> List[bytes]:
+        """``call()``, one backend round trip for ``keys``, timed in a
+        ``vss.store.fetch`` span and counted."""
+        fs = _obs.span("vss.store.fetch", objects=len(keys), timed=True)
+        with fs:
+            blobs = call()
+        self._seconds += fs.seconds
+        self._objects += len(keys)
+        self._bytes += sum(len(b) for b in blobs)
+        return blobs
+
+    def prefetch(self, keys: Sequence[str]) -> float:
+        """Fetch the keys not yet held in one round trip; its seconds."""
+        missing = [k for k in dict.fromkeys(keys) if k not in self._blobs]
+        if not missing:
+            return 0.0
+        secs0 = self._seconds
+        self._blobs.update(zip(missing, self._fetch(
+            missing, lambda: self.backend.batch_get(missing))))
+        return self._seconds - secs0
 
     def get(self, key: str) -> bytes:
-        if key in self.blobs:
-            return self.blobs[key]
-        fs = _obs.span("vss.store.fetch", objects=1, timed=True)
-        with fs:
-            data = self.backend.get(key)
-        self.fetch_seconds += fs.seconds
-        self.objects_fetched += 1
-        self.bytes_fetched += len(data)
-        self.fetched_sizes.setdefault(key, len(data))
-        if not self.stream:
-            self.blobs[key] = data
+        if key in self._blobs:
+            return self._blobs[key]
+        data, = self._fetch([key], lambda: [self.backend.get(key)])
+        if not self._stream:
+            self._blobs[key] = data
         return data
 
     def batch_get(self, keys: Sequence[str]) -> List[bytes]:
-        if self.stream:
-            uniq = [k for k in dict.fromkeys(keys)]
-            got = dict(zip(uniq, self._fetch(uniq))) if uniq else {}
+        if self._stream:
+            uniq = list(dict.fromkeys(keys))
+            got = dict(zip(uniq, self._fetch(
+                uniq, lambda: self.backend.batch_get(uniq)))) if uniq else {}
             return [got[k] for k in keys]
         self.prefetch(keys)
-        return [self.blobs[k] for k in keys]
+        return [self._blobs[k] for k in keys]
 
     def get_range(self, key: str, start: int, length: int) -> bytes:
         """Ranged fetch with the same telemetry as ``get``.  Partial
-        bytes are never cached in ``blobs`` — a later full read of the
-        key must not alias a truncated payload."""
-        fs = _obs.span("vss.store.fetch", objects=1, timed=True)
-        with fs:
-            data = self.backend.get_range(key, start, length)
-        self.fetch_seconds += fs.seconds
-        self.objects_fetched += 1
-        self.bytes_fetched += len(data)
+        bytes are never held — a later full read of the key must not
+        alias a truncated payload."""
+        data, = self._fetch(
+            [key], lambda: [self.backend.get_range(key, start, length)])
         return data
 
 
@@ -799,12 +835,9 @@ class VSS:
                         claims.append(
                             (i, len(objs), self._claim_fetches(io, objs))
                         )
-                secs0 = io.fetch_seconds
-                io.prefetch(keys)
+                wall = io.prefetch(keys)
                 if roots is not None:
-                    self._fetch_spans(
-                        roots, io, claims, io.fetch_seconds - secs0
-                    )
+                    self._fetch_spans(roots, io, claims, wall)
         elif roots is not None:
             # price the plan before execution fetches anything (a
             # tiered key must be costed at the tier that will actually
@@ -853,8 +886,7 @@ class VSS:
                 results[i] = ReadResult(frames, r.codec, encoded, plan,
                                         r.fps, device=self.device)
                 continue
-            decoded0, fetched0 = io.gops_decoded, io.objects_fetched
-            bytes0, secs0 = io.bytes_fetched, io.fetch_seconds
+            totals0 = io.totals()
             # measured around the execution, fetches made inside it
             # included: they are also its own ``fetch`` children
             with _obs.span("vss.store.decode", parent=root) as dsp:
@@ -873,16 +905,17 @@ class VSS:
             if r.codec == "rgb" and self.enable_deferred:
                 self.deferred.on_uncompressed_read(r.name)
             if dsp is not None:
-                dsp.attrs["gops"] = io.gops_decoded - decoded0
-                if io.objects_fetched > fetched0:
+                gops, objects, nbytes, secs = (
+                    t - t0 for t, t0 in zip(io.totals(), totals0)
+                )
+                dsp.attrs["gops"] = gops
+                if objects:
                     # the round trips made inside the execution (the
                     # streaming path, ranged prefixes), summed
                     fsp = _obs.Span(
-                        "fetch", inline=True,
-                        objects=io.objects_fetched - fetched0,
-                        bytes=io.bytes_fetched - bytes0,
+                        "fetch", inline=True, objects=objects, bytes=nbytes
                     )
-                    fsp.dur_s = io.fetch_seconds - secs0
+                    fsp.dur_s = secs
                     root.children.insert(len(root.children) - 1, fsp)
             results[i] = ReadResult(frames, r.codec, encoded, plan, r.fps,
                                     device=self.device)
@@ -915,10 +948,11 @@ class VSS:
 
         if roots is not None:
             for io in ios.values():
-                self._m_objects.inc(io.objects_fetched)
-                self._m_fetch_bytes.inc(io.bytes_fetched)
-                self._m_decoded.inc(io.gops_decoded)
-                self._m_actual_io.inc(io.fetch_seconds)
+                gops, objects, nbytes, secs = io.totals()
+                self._m_objects.inc(objects)
+                self._m_fetch_bytes.inc(nbytes)
+                self._m_decoded.inc(gops)
+                self._m_actual_io.inc(secs)
             for root in roots:
                 self.tracer.record(root.finish())
 
@@ -936,9 +970,8 @@ class VSS:
         new_keys: List[str] = []
         predicted = 0.0
         for g in objs:
-            if g.path in io.blobs or g.path in io.claimed:
+            if not io.claim(g.path):
                 continue
-            io.claimed.add(g.path)
             new_keys.append(g.path)
             predicted += self.cost_model.io_cost(
                 self.backend.kind_for(g.path), g.nbytes
@@ -951,7 +984,7 @@ class VSS:
         claims: List[Tuple[int, int, List[str]]], fetch_wall: float,
     ) -> None:
         """One fetch span per plan-group member, with the objects and
-        bytes it claimed (the actual blob sizes the fetch recorded).
+        bytes it claimed (the sizes of the blobs the fetch brought).
         The group's batch_get is one round trip: its measured seconds
         go to the first member's span, and the others are marked
         ``shared``."""
@@ -960,7 +993,7 @@ class VSS:
             sp = _obs.Span(
                 "fetch",
                 objects=len(new_keys),
-                bytes=sum(io.fetched_sizes.get(k, 0) for k in new_keys),
+                bytes=sum(len(io.held(k)) for k in new_keys),
                 planned=planned,
                 dedup_hits=planned - len(new_keys),
             )
@@ -1281,8 +1314,7 @@ class VSS:
         return grouped
 
     def _execute(
-        self, plan: ReadPlan, roi: Box, resolution, out_fps,
-        io: Optional[_BatchIO] = None,
+        self, plan: ReadPlan, roi: Box, resolution, out_fps, io: _BatchIO,
     ) -> np.ndarray:
         pieces: List[np.ndarray] = []
         touched: List[int] = []
@@ -1299,7 +1331,7 @@ class VSS:
 
     def _execute_encoded(
         self, plan: ReadPlan, roi: Box, resolution, out_fps, out_codec,
-        scale_to, io: Optional[_BatchIO] = None,
+        scale_to, io: _BatchIO,
     ) -> List[_codec.EncodedGOP]:
         """Produce the encoded result; same-codec fragments pass through."""
         out: List[_codec.EncodedGOP] = []
@@ -1324,7 +1356,7 @@ class VSS:
         return out
 
     def _extract_encoded(
-        self, run: Run, a, b, out_codec, io: Optional[_BatchIO] = None,
+        self, run: Run, a, b, out_codec, io: _BatchIO,
     ) -> Tuple[List[_codec.EncodedGOP], List[int]]:
         """Byte-level GOP pass-through; partial edge GOPs are trimmed
         through a decode→re-encode of just that GOP."""
@@ -1338,10 +1370,7 @@ class VSS:
                 continue
             gop_ids.append(g.gop_id)
             if gs >= f0 and ge <= f1:  # fully inside: verbatim bytes
-                data = (io or self.backend).get(g.path)
-                if is_wrapped(data):
-                    data = unwrap_bytes(data)
-                out.append(_codec.deserialize_gop(data))
+                out.append(_stored_gop(io.get(g.path)))
             else:  # edge GOP: decode, trim, re-encode (the look-back cost)
                 lo = max(f0 - gs, 0)
                 hi = min(f1, ge) - gs
@@ -1356,8 +1385,7 @@ class VSS:
         return out, gop_ids
 
     def _extract(
-        self, run: Run, a, b, roi: Box, resolution, out_fps,
-        io: Optional[_BatchIO] = None,
+        self, run: Run, a, b, roi: Box, resolution, out_fps, io: _BatchIO,
     ) -> Tuple[np.ndarray, List[int]]:
         p = run.physical
         f0, f1 = self._clamp_frames(run, p.frame_at(a), p.frame_at(b))
@@ -1397,54 +1425,47 @@ class VSS:
         return frames, [g.gop_id for g in gops]
 
     def _decode_gop_bytes(self, data: bytes) -> np.ndarray:
-        if is_wrapped(data):
-            data = unwrap_bytes(data)
-        enc = _codec.deserialize_gop(data)
-        return _codec.decode_gop(enc, device=self.device)
+        return _codec.decode_gop(_stored_gop(data), device=self.device)
 
-    def _load_gop_frames(
-        self, g: GopMeta, io: Optional[_BatchIO] = None
-    ) -> np.ndarray:
-        if io is not None and g.gop_id in io.decoded:
-            return io.decoded[g.gop_id]
+    def gop_frames(self, g: GopMeta) -> np.ndarray:
+        """``g``'s frames read straight from the backend, outside any
+        read: no fetch span, no trace node, no read counter.  The joint
+        pass and a joint GOP's rebuild load stored GOPs through here."""
+        return self._gop_frames(g, self.backend.get)
+
+    def _gop_frames(self, g: GopMeta, get) -> np.ndarray:
+        """``g``'s frames, its object fetched through ``get``; a joint
+        GOP is rebuilt from its record's segment objects."""
         if g.joint_ref is not None:
-            from repro_torch.core import joint as _joint
+            return _joint.reconstruct_gop(self, g)
+        return self._decode_gop_bytes(get(g.path))
 
-            frames = _joint.reconstruct_gop(self, g)
-        else:
-            frames = self._decode_gop_bytes((io or self.backend).get(g.path))
-        if io is not None:
-            io.remember(g.gop_id, frames)
+    def _load_gop_frames(self, g: GopMeta, io: _BatchIO) -> np.ndarray:
+        frames = io.lookup(g.gop_id)
+        if frames is None:
+            frames = io.keep(self._gop_frames(g, io.get), g.gop_id)
         return frames
 
     def _load_gops_frames(
-        self, gops: Sequence[GopMeta], io: Optional[_BatchIO] = None
+        self, gops: Sequence[GopMeta], io: _BatchIO
     ) -> List[np.ndarray]:
         """Load many GOPs' frames; plain payloads go through one
-        ``batch_get`` so sharded/remote backends overlap the I/O.  With
-        a batch context, blobs and decoded frames are shared across
-        every request in the batch (each GOP decodes at most once)."""
+        ``batch_get`` so sharded/remote backends overlap the I/O.  Blobs
+        and decoded frames are shared through ``io`` across every
+        request in the batch (each GOP decodes at most once)."""
         plain = [
             g for g in gops
-            if g.joint_ref is None
-            and not (io is not None and g.gop_id in io.decoded)
+            if g.joint_ref is None and io.lookup(g.gop_id) is None
         ]
         blobs = dict(zip(
             (g.gop_id for g in plain),
-            (io or self.backend).batch_get([g.path for g in plain]),
+            io.batch_get([g.path for g in plain]),
         ))
-        out: List[np.ndarray] = []
-        for g in gops:
-            if io is not None and g.gop_id in io.decoded:
-                out.append(io.decoded[g.gop_id])
-            elif g.joint_ref is not None:
-                out.append(self._load_gop_frames(g, io))
-            else:
-                frames = self._decode_gop_bytes(blobs[g.gop_id])
-                if io is not None:
-                    io.remember(g.gop_id, frames)
-                out.append(frames)
-        return out
+        return [
+            io.keep(self._decode_gop_bytes(blobs[g.gop_id]), g.gop_id)
+            if g.gop_id in blobs else self._load_gop_frames(g, io)
+            for g in gops
+        ]
 
     # -- ranged sub-GOP reads ------------------------------------------
     def _trim_eligible(self, g: GopMeta, hi: int, p: PhysicalMeta) -> bool:
@@ -1466,7 +1487,7 @@ class VSS:
         )
 
     def _load_gop_prefix(
-        self, g: GopMeta, hi: int, io: Optional[_BatchIO] = None
+        self, g: GopMeta, hi: int, io: _BatchIO
     ) -> np.ndarray:
         """Decode frames ``[0, hi)`` of ``g`` from a byte prefix.
 
@@ -1477,16 +1498,13 @@ class VSS:
         lacks offsets.  The prefix decode is bit-exact: TVC residuals
         are closed-loop per-pixel, so frames [0, hi) depend only on
         bytes [0, offsets[hi])."""
-        if io is not None:
-            if g.gop_id in io.decoded:  # another spec decoded it fully
-                return io.decoded[g.gop_id][:hi]
-            key = ("pfx", g.gop_id, hi)
-            if key in io.decoded:
-                return io.decoded[key]
-            if g.path in io.blobs:  # another spec full-fetched the blob
-                return self._decode_gop_bytes(io.blobs[g.path])[:hi]
-        src = io if io is not None else self.backend
-        probe = src.get_range(
+        frames = io.lookup(g.gop_id, hi=hi)  # or cut from the whole GOP
+        if frames is not None:
+            return frames
+        blob = io.held(g.path)
+        if blob is not None:  # another spec full-fetched the blob
+            return self._decode_gop_bytes(blob)[:hi]
+        probe = io.get_range(
             g.path, 0, min(_codec.HEADER_PROBE_BYTES, g.nbytes)
         )
         try:
@@ -1505,18 +1523,14 @@ class VSS:
         else:
             return self._load_gop_frames(g, io)[:hi]
         if end > len(probe):
-            probe += src.get_range(g.path, len(probe), end - len(probe))
+            probe += io.get_range(g.path, len(probe), end - len(probe))
         enc = _codec.EncodedGOP(
             codec_name, (hi, h, w, c), probe[pstart:end], sub_offsets
         )
         frames = _codec.decode_gop(enc, device=self.device)
         self._m_ranged_fetches.inc()
         self._m_ranged_saved.inc(max(0, g.nbytes - len(probe)))
-        if io is not None:
-            io.gops_decoded += 1
-            if not io.stream:
-                io.decoded[("pfx", g.gop_id, hi)] = frames
-        return frames
+        return io.keep(frames, g.gop_id, hi=hi)
 
     # -- tiled reads ---------------------------------------------------
     def _load_tiled_frames(
@@ -1524,7 +1538,7 @@ class VSS:
         p: PhysicalMeta,
         gops: Sequence[GopMeta],
         box: Box,
-        io: Optional[_BatchIO] = None,
+        io: _BatchIO,
     ) -> Tuple[np.ndarray, Tuple[int, int]]:
         """Load the tiles of ``gops`` covering local-pixel ``box``,
         stitch them losslessly, and return the stitched frames plus the
@@ -1538,18 +1552,17 @@ class VSS:
         xs = tile_bounds(p.width, p.tiles[1])
         ox, oy = xs[cols[0]][0], ys[rows[0]][0]
         # one batched fetch of every not-yet-decoded tile
-        need: List[Tuple[int, int, int, str]] = []
-        for g in gops:
-            for r in rows:
-                for c in cols:
-                    if io is not None and (g.gop_id, r, c) in io.decoded:
-                        continue
-                    need.append((g.gop_id, r, c, tile_key(g.path, r, c)))
-        blobs = dict(zip(
-            ((gid, r, c) for gid, r, c, _ in need),
-            (io or self.backend).batch_get([k for _, _, _, k in need]),
-        )) if need else {}
+        need = [
+            (g.gop_id, (r, c), tile_key(g.path, r, c))
+            for g in gops for r in rows for c in cols
+            if io.lookup(g.gop_id, (r, c)) is None
+        ]
+        blobs = {}
         if need:
+            blobs = dict(zip(
+                ((gid, tile) for gid, tile, _ in need),
+                io.batch_get([k for _, _, k in need]),
+            ))
             self._m_tile_fetches.inc(len(need))
         if len(rows) * len(cols) < p.tiles[0] * p.tiles[1]:
             self._m_tile_reads.inc()
@@ -1559,15 +1572,12 @@ class VSS:
             for r in rows:
                 band: List[np.ndarray] = []
                 for c in cols:
-                    tkey = (g.gop_id, r, c)
-                    if io is not None and tkey in io.decoded:
-                        band.append(io.decoded[tkey])
-                        continue
-                    frames = self._decode_gop_bytes(blobs[tkey])
-                    if io is not None:
-                        io.gops_decoded += 1
-                        if not io.stream:
-                            io.decoded[tkey] = frames
+                    frames = io.lookup(g.gop_id, (r, c))
+                    if frames is None:
+                        frames = io.keep(
+                            self._decode_gop_bytes(blobs[g.gop_id, (r, c)]),
+                            g.gop_id, (r, c),
+                        )
                     band.append(frames)
                 bands.append(np.concatenate(band, axis=2))
             stitched.append(np.concatenate(bands, axis=1))
@@ -1586,10 +1596,6 @@ class VSS:
     ) -> List[int]:
         """Find overlapping GOP pairs across logical videos and jointly
         compress them. Returns the created joint record ids."""
-        from repro_torch.core import joint as _joint
-        from repro_torch.core.features import FeatureMemo
-        from repro_torch.core.fingerprint import CandidateIndex
-
         names = list(names or self.catalog.list_logical())
         # each frame's features once a pass, shared by the candidate
         # search and Algorithm 1; dropped when the pass returns
@@ -1605,7 +1611,7 @@ class VSS:
                 for g in self.catalog.gops_for(p.physical_id):
                     if g.joint_ref is not None:
                         continue
-                    index.add_gop(g.gop_id, self._load_gop_frames(g))
+                    index.add_gop(g.gop_id, self.gop_frames(g))
                     owner[g.gop_id] = name
         joint_ids: List[int] = []
         used: set = set()
@@ -1632,15 +1638,12 @@ class VSS:
         (`joint.JointCounters`), registered at the first joint pass, so a
         store that never runs one exposes none of them."""
         if self._m_joint is None:
-            from repro_torch.core.features import MEMO_OUTCOMES
-            from repro_torch.core.joint import OUTCOMES, JointCounters
-
             reg = self.registry
-            self._m_joint = JointCounters(
+            self._m_joint = _joint.JointCounters(
                 pairs={o: reg.counter(
                     "vss_joint_pairs_total",
                     "GOP pairs Algorithm 1 ran on, by its outcome",
-                    labels={"outcome": o}) for o in OUTCOMES},
+                    labels={"outcome": o}) for o in _joint.OUTCOMES},
                 candidates=reg.counter(
                     "vss_joint_candidates_total",
                     "GOP pairs the candidate search returned"),
@@ -2159,57 +2162,3 @@ class VSSWriter:
         self.store.catalog.set_budget(self.name, budget)
         self.store._notify_write(self.name)
         return self.store.catalog.get_physical(self._pid)
-
-
-def resample(frames: np.ndarray, resolution: Tuple[int, int], *,
-             device: str = "cuda") -> np.ndarray:
-    """Resize (T, H, W, C) uint8 frames to (width, height).
-
-    An integer box factor pools on the host, as the reference does.
-    Any other size is a separable antialiased bilinear resize on
-    ``device`` with the weights of ``jax.image.resize(..., "bilinear")``
-    (`bilinear_weights`).  The sums run in another order than XLA's, so
-    a value within float rounding of a .5 boundary may round the other
-    way: the port agrees with the reference within 1 on uint8."""
-    w, h = resolution
-    t, ih, iw, c = frames.shape
-    if (iw, ih) == (w, h):
-        return frames
-    if ih % h == 0 and iw % w == 0 and ih // h == iw // w:
-        f = ih // h  # integer box downsample (matches the codec kernel)
-        with _obs.span("vss.store.resample_box"):
-            x = frames.astype(np.float32).reshape(t, h, f, w, f, c)
-            x = x.mean((2, 4))
-            return np.clip(np.round(x), 0, 255).astype(np.uint8)
-    x = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
-    wy = bilinear_weights(ih, h, device)
-    wx = bilinear_weights(iw, w, device)
-    out = torch.einsum("thwc,hy,wx->tyxc", x.to(torch.float32), wy, wx)
-    out = torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
-    return out.cpu().numpy()
-
-
-def bilinear_weights(in_size: int, out_size: int, device) -> torch.Tensor:
-    """(in_size, out_size) f32 weights of one axis of jax's antialiased
-    bilinear resize (``jax._src.image.scale.compute_weight_mat`` with the
-    triangle kernel, scale = out/in, translation 0): on downsampling the
-    triangle widens by in/out, so every input pixel under an output
-    pixel's footprint contributes."""
-    f32 = torch.float32
-    scale = torch.tensor(out_size / in_size, dtype=f32)
-    inv_scale = 1.0 / scale
-    kernel_scale = torch.clamp(inv_scale, min=1.0)
-    sample_f = (torch.arange(out_size, dtype=f32) + 0.5) * inv_scale - 0.5
-    x = torch.abs(
-        sample_f[None, :] - torch.arange(in_size, dtype=f32)[:, None]
-    ) / kernel_scale
-    weights = torch.clamp(1.0 - torch.abs(x), min=0.0)
-    total = weights.sum(dim=0, keepdim=True)
-    weights = torch.where(
-        torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-        weights / torch.where(total != 0, total, torch.ones_like(total)),
-        torch.zeros_like(weights),
-    )
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    weights = torch.where(inside[None, :], weights, torch.zeros_like(weights))
-    return weights.to(device)

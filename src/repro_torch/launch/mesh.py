@@ -131,6 +131,3 @@ def make_host_mesh(device="cuda"):
                                f" group, not {dist.get_backend()}")
     return _mesh(dev.type, (1, 1), ("data", "model"))
 
-
-def data_axes(mesh) -> tuple:
-    return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)

@@ -20,7 +20,7 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "chip_breakdown.py",
-    REPO / "chip_mse_variants.py", REPO / "chip_cublas_ab.py"]
+    REPO / "chip_cublas_ab.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -50,6 +50,17 @@ def test_forbidden_matcher_separates_repro_from_repro_torch():
 def test_port_file_imports_no_jax_and_no_reference(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_joint_compression_imports_nothing_of_the_store():
+    """The store drives joint compression and imports it; joint
+    compression reaches the store only through the object it is handed."""
+    path = REPO / "src" / "repro_torch" / "core" / "joint.py"
+    assert "repro_torch.core.store" not in set(_imported_modules(path))
+    assert "store" not in {
+        alias.name for node in ast.walk(ast.parse(path.read_text()))
+        if isinstance(node, ast.ImportFrom)
+        and node.module == "repro_torch.core" for alias in node.names}
 
 
 def test_package_works_with_jax_and_reference_blocked(tmp_path):

@@ -69,12 +69,15 @@ def test_a_search_with_a_memo_finds_the_same_h(size, wide_pair,
     # the reversed search of Algorithm 1 reuses both frames' features
     again = joint._estimate_h_verified(g, f, width, height, "cpu",
                                        features=memo)
-    own = joint._estimate_h_verified(g, f, width, height, "cpu")
+    own = joint._estimate_h_verified(g, f, width, height, "cpu",
+                                     features=features.FeatureMemo())
     _searches_without_a_memo(monkeypatch)
-    plain = joint._estimate_h_verified(f, g, width, height, "cpu")
+    plain = joint._estimate_h_verified(f, g, width, height, "cpu",
+                                       features=features.FeatureMemo())
     assert plain is not None
     np.testing.assert_array_equal(memoed, plain)
-    plain_again = joint._estimate_h_verified(g, f, width, height, "cpu")
+    plain_again = joint._estimate_h_verified(
+        g, f, width, height, "cpu", features=features.FeatureMemo())
     np.testing.assert_array_equal(again, plain_again)
     np.testing.assert_array_equal(own, plain_again)
 

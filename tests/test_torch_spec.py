@@ -373,7 +373,7 @@ def test_read_batch_executes_by_priority_within_group(vss, clip,
     order = []
     orig = _PortVSS._execute
 
-    def spy(self, plan, roi, resolution, out_fps, io=None):
+    def spy(self, plan, roi, resolution, out_fps, io):
         order.append((plan.segments[0][0], plan.segments[-1][1]))
         return orig(self, plan, roi, resolution, out_fps, io)
 

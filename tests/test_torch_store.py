@@ -30,6 +30,7 @@ from repro.core.store import VSS as JVSS
 from repro.core.store import resample as jresample
 from repro_torch import codec as tcodec
 from repro_torch.core import store as tstore_mod
+from repro_torch.core.resize import resample as tresample
 from repro_torch.core.config import VSSConfig as TConfig
 from repro_torch.core.quality import exact_psnr
 from repro_torch.core.spec import ReadSpec as TReadSpec
@@ -117,7 +118,7 @@ def test_bilinear_resolution_within_one(pair):
 def test_resample_bilinear_within_one(clip, size):
     frames = clip[:4]
     a = jresample(frames, size)
-    b = tstore_mod.resample(frames, size, device="cpu")
+    b = tresample(frames, size, device="cpu")
     assert a.shape == b.shape
     assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= 1
 
@@ -126,8 +127,7 @@ def test_resample_integer_box_exact(clip):
     frames = clip[:5]
     for size in ((64, 48), (32, 24), (128, 96)):
         assert np.array_equal(jresample(frames, size),
-                              tstore_mod.resample(frames, size,
-                                                  device="cpu"))
+                              tresample(frames, size, device="cpu"))
 
 
 def _catalog_rows(root):

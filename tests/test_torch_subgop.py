@@ -13,7 +13,8 @@ across at half resolution, and one ``read_batch`` of three overlapping
 ROI specs.  Held between the two packages: every stored object byte for
 byte, every read's frames bit for bit, and each read's change in
 ``vss_read_ranged_fetches_total``, ``vss_read_ranged_bytes_saved_total``,
-``vss_tile_fetches_total`` and ``vss_tile_reads_total``.  Planted faults
+``vss_tile_fetches_total``, ``vss_tile_reads_total`` and the read path's
+GOPs decoded, objects fetched and bytes fetched.  Planted faults
 in the port (the stitched tiles one column off, a ranged prefix one frame
 short) must fail the same comparison."""
 import numpy as np
@@ -28,6 +29,7 @@ from repro.core.types import tile_keys
 from repro.obs import MetricsRegistry as JRegistry
 from repro_torch.core import store as tstore_mod
 from repro_torch.core.config import VSSConfig as TConfig
+from repro_torch.core.resize import resample as tresample
 from repro_torch.core.spec import ReadSpec as TReadSpec
 from repro_torch.core.spec import WriteSpec as TWriteSpec
 from repro_torch.core.store import VSS as TVSS
@@ -39,7 +41,8 @@ GOP = 30
 TILINGS = {"untiled": None, "3x3": (3, 3), "4x7": (4, 7)}
 COUNTERS = ("vss_read_ranged_fetches_total",
             "vss_read_ranged_bytes_saved_total", "vss_tile_fetches_total",
-            "vss_tile_reads_total")
+            "vss_tile_reads_total", "vss_read_gops_decoded_total",
+            "vss_read_objects_fetched_total", "vss_read_fetch_bytes_total")
 TRIMS = (1, 3, 22, 23)
 
 
@@ -177,8 +180,8 @@ def test_roi_read_matches_reference(pairs, clip, tiling, read):
     whole, _ = _same(pair.read())
     want = whole[:, y0:y1, x0:x1]
     if half:
-        want = tstore_mod.resample(want, ((x1 - x0) // 2, (y1 - y0) // 2),
-                                   device="cpu")
+        want = tresample(want, ((x1 - x0) // 2, (y1 - y0) // 2),
+                         device="cpu")
     assert np.array_equal(frames, want)
     if tiling == "untiled":
         assert counts["vss_tile_fetches_total"] == 0
@@ -235,7 +238,7 @@ def _fault_shifted_stitch(store):
 
 def _fault_short_prefix(store):
     load = store._load_gop_prefix
-    return "_load_gop_prefix", lambda g, hi, io=None: load(g, hi - 1, io)
+    return "_load_gop_prefix", lambda g, hi, io: load(g, hi - 1, io)
 
 
 @pytest.mark.parametrize("fault,tiling,kw", (
