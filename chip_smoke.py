@@ -29,7 +29,13 @@ and PyTorch built for CUDA.  In order it:
    its kernel (``torch.profiler``).  It times each kernel and its plain version with CUDA events (mean over
    many calls queued back to back), the warp and histogram beside a
    PyTorch yardstick (``F.grid_sample``, ``torch.bincount``) and an empty
-   kernel (the harness's launch floor);
+   kernel (the harness's launch floor).  The box mean of a view read at a
+   fraction of the stored size (it replaces no TPU kernel) is held bit
+   for bit against its plain version over every block sum of f = 2, 3, 4
+   (each also against the exact quotient rounded half to even), at ragged
+   widths for f of 1 to 12 and on frames off 16-byte boundaries, and
+   timed at the 2K long reads' half-size read (ninety 1080p frames, f =
+   2) and at a 4K GOP with f = 2 and 3;
 4. drives the storage manager end to end: ``VSS.write`` of a 1080p,
    90-frame synthetic road clip as ``hevc``, ``codec.transcode_gop`` of a
    stored GOP, and five ``VSS.read``s (whole clip, a time window, half
@@ -38,7 +44,8 @@ and PyTorch built for CUDA.  In order it:
    ``device="cpu"`` (the plain versions; the bilinear resize within 1).
    Each of those seven paths runs with the launch counts set to 0 just
    before it and read just after, and in the CUDA run each must have
-   launched exactly the kernels its plan needs;
+   launched exactly the kernels its plan needs (the half-resolution read
+   one ``box_mean``, the whole-clip read none);
 5. drives sub-GOP ranged reads and the tiled ROI layout (the sub-GOP
    phase), in fresh ``local`` stores on ``"cuda"`` and then on ``"cpu"``:
    step 4's clip written as ``hevc`` in 30-frame GOPs untiled, on a (3,
@@ -268,6 +275,7 @@ from repro_torch.data.video import (  # noqa: E402
 )
 from repro_torch.kernels import (  # noqa: E402
     _build,
+    box_mean,
     delta_codec,
     histogram,
     ops,
@@ -339,6 +347,8 @@ KERNELS = {
     "mse": ("src/repro_torch/csrc/mse.cu", "src/repro/kernels/mse.py:42"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention.py:87"),
+    # replaces no TPU kernel: the reference pools on the host with numpy
+    "box_mean": ("src/repro_torch/csrc/box_mean.cu", None),
 }
 MAIN_KERNELS = ("delta_encode", "delta_decode", "transcode")
 JOINT_KERNELS = ("warp", "histogram")
@@ -825,6 +835,101 @@ def check_subgop_kernels(device: str, reps: int, seed: int = 1):
     return out, worst
 
 
+# the box mean's timed shapes: the 2K long reads' half-size read (ninety
+# 1080p frames at f = 2) and a 4K GOP at f = 2 and 3
+BOX_MEAN_TIMED = (("2K read", (90, 1080, 1920, 3), 2),
+                  ("4K GOP", (30, 2160, 3840, 3), 2),
+                  ("4K GOP", (30, 2160, 3840, 3), 3))
+# (frames, output rows, output pixels a row) at every factor: less than
+# one run a row, whole runs and a tail, a 1080p frame where f divides it
+BOX_MEAN_RAGGED = ((3, 7, 13), (2, 9, 37))
+BOX_MEAN_FACTORS = (1, 2, 3, 4, 5, 8, 12)
+BOX_MEAN_OFFSETS = (1, 3, 4, 8)  # bytes off a 16-byte boundary
+
+
+def box_mean_sums(f: int):
+    """(1, f, px * f, 3) uint8 frames whose f x f blocks sum to 0, 1, ...,
+    255 f^2 in turn (block b: output pixel b // 3, channel b % 3), and
+    each sum's quotient by f^2 rounded half to even, in integers."""
+    s = np.arange(255 * f * f + 1)
+    px = -(-len(s) // 3)
+    blocks = np.zeros((px * 3, f * f), np.uint8)
+    blocks[:len(s)] = np.clip(s[:, None] - 255 * np.arange(f * f), 0, 255)
+    x = blocks.reshape(px, 3, f, f).transpose(2, 0, 3, 1)
+    q, r = np.divmod(s, f * f)
+    want = q + ((2 * r > f * f) | ((2 * r == f * f) & (q % 2 == 1)))
+    return np.ascontiguousarray(x.reshape(1, f, px * f, 3)), want
+
+
+def box_mean_bound(t, h, w, c, f):
+    """Each input byte read once, each output byte written once."""
+    return _bound(t * h * w * c + t * (h // f) * (w // f) * c, 0)
+
+
+def check_box_mean(device: str, reps: int, seed: int = 0):
+    """Hold the box-mean kernel against its plain version on the card,
+    bit for bit: every block sum of f = 2, 3, 4 (each also against the
+    exact quotient rounded half to even), ragged widths at every factor
+    of ``BOX_MEAN_FACTORS``, frames off the 16-byte boundary (its scalar
+    path) and the timed shapes; a second call must give the same bits and
+    a warmed call must run one device operation, the kernel.  Times the
+    kernel and its plain version at ``BOX_MEAN_TIMED``: the first is the
+    JSON line's figure, the others go under ``also``."""
+    rng = np.random.default_rng(seed)
+    res = {"max_abs_err": 0.0}
+
+    def hold(what, x, f):
+        k = ops.box_mean(x, f)
+        res["max_abs_err"] = max(res["max_abs_err"], _exact(
+            "box_mean", what, [(k, box_mean.box_mean_plain(x, f))]))
+        return k
+
+    for f in (2, 3, 4):
+        frames, want = box_mean_sums(f)
+        k = hold(f"every block sum f={f}", torch.from_numpy(frames).to(
+            device), f)
+        got = k.cpu().numpy().reshape(-1)[:len(want)]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"box_mean f={f}: a block sum's mean is not"
+                                 " its quotient rounded half to even")
+    for f in BOX_MEAN_FACTORS:
+        cases = [(t, oh * f, ow * f) for t, oh, ow in BOX_MEAN_RAGGED]
+        if 1080 % f == 0 and 1920 % f == 0:
+            cases.append((2, 1080, 1920))
+        for t, h, w in cases:
+            x = torch.from_numpy(rng.integers(0, 256, (t, h, w, 3),
+                                              dtype=np.uint8)).to(device)
+            hold(f"({t}, {h}, {w}, 3) f={f}", x, f)
+    for off in BOX_MEAN_OFFSETS:
+        shape = (2, 1080, 1920, 3)
+        n = int(np.prod(shape))
+        buf = torch.from_numpy(rng.integers(0, 256, n + off,
+                                            dtype=np.uint8)).to(device)
+        hold(f"{shape} f=2 {off} bytes off 16", buf[off:].view(shape), 2)
+    also = {}
+    for i, (label, (t, h, w, c), f) in enumerate(BOX_MEAN_TIMED):
+        x = torch.from_numpy(rng.integers(0, 256, (t, h, w, c),
+                                          dtype=np.uint8)).to(device)
+        first = hold(f"{label} {(t, h, w, c)} f={f}", x, f)
+        _repeat_exact("box_mean", label, first, lambda: ops.box_mean(x, f))
+        del first
+        bound_ms, bound_by = box_mean_bound(t, h, w, c, f)
+        r = dict(ms=time_ms(lambda: ops.box_mean(x, f), reps),
+                 plain_ms=time_ms(lambda: box_mean.box_mean_plain(x, f),
+                                  reps),
+                 bound_ms=bound_ms, bound_by=bound_by, shape=[t, h, w, c],
+                 factor=f, dtype="uint8")
+        if i == 0:
+            res.update(r)
+            check_one_kernel_a_call(lambda: ops.box_mean(x, f), "box_mean")
+        else:
+            also[f"{label} f={f}"] = r
+        del x
+        torch.cuda.empty_cache()
+    res["also"] = {"at_4k": also}
+    return res
+
+
 class _Steps:
     """Runs named steps, each with the launch counts set to 0 just before
     it and read just after (the plain versions' calls on the CPU), and
@@ -857,7 +962,8 @@ def reads_for(clip: np.ndarray):
     GOPs it returns encoded.  The first read decodes every stored GOP and
     the cache keeps an rgb view of the clip, which serves every later
     read without a decode: the h264 read re-encodes from that view, and
-    its ``frames`` decode what it encoded.  The 2/3 resize is no integer
+    its ``frames`` decode what it encoded; the half-size read pools that
+    view on the card, one ``box_mean`` launch.  The 2/3 resize is no integer
     factor and so runs the bilinear path on the device; it comes last,
     because its cached view differs by up to 1 between devices."""
     _t, h, w, _c = clip.shape
@@ -867,7 +973,7 @@ def reads_for(clip: np.ndarray):
          lambda n, n_out: {"delta_decode": n}),
         ("t=(0.5, 1.7)", {"t": (0.5, 1.7)}, {"rgb"}, lambda n, n_out: {}),
         (f"resolution={(w // 2, h // 2)}", {"resolution": (w // 2, h // 2)},
-         {"rgb"}, lambda n, n_out: {}),
+         {"rgb"}, lambda n, n_out: {"box_mean": 1}),
         ("codec=h264", {"codec": "h264"}, {"rgb"},
          lambda n, n_out: {"delta_encode": n_out, "delta_decode": n_out}),
         (f"bilinear resolution={third}", {"resolution": third}, {"rgb"},
@@ -940,7 +1046,7 @@ def check_launches(run, clip: np.ndarray) -> None:
             raise AssertionError(
                 f"{name} launched {got}, expected {counts}; every path:"
                 f" {run['launches']}")
-    for kernel in MAIN_KERNELS:
+    for kernel in (*MAIN_KERNELS, "box_mean"):
         if not any(c.get(kernel) for c in run["launches"].values()):
             raise AssertionError(f"main path never launched {kernel}")
 
@@ -1268,6 +1374,10 @@ def check_subgop(gpu, cpu, flat, uhd, sizes, report=True) -> None:
                                  f" != cpu frames {fc.shape}")
     for what in ("launches", "counters", "shapes", "sources"):
         for name, got in gpu[what].items():
+            if what == "launches":
+                # a CPU store pools with numpy: no plain call stands in
+                # for the card's box mean
+                got = {k: v for k, v in got.items() if k != "box_mean"}
             if got != cpu[what][name]:
                 raise AssertionError(
                     f"sub-GOP {name}: cuda {what} {got} != cpu"
@@ -1304,10 +1414,13 @@ def check_subgop(gpu, cpu, flat, uhd, sizes, report=True) -> None:
         if got != shapes:
             raise AssertionError(f"sub-GOP {name}: decoded {got}, the plan"
                                  f" needs {shapes}")
-        if gpu["launches"][name] != {"delta_decode": len(shapes)}:
+        plan = {"delta_decode": len(shapes)}
+        if want["half"]:
+            plan["box_mean"] = 1
+        if gpu["launches"][name] != plan:
             raise AssertionError(f"sub-GOP {name}: launched"
                                  f" {gpu['launches'][name]}, the plan needs"
-                                 f" {len(shapes)} delta_decode")
+                                 f" {plan}")
         c = gpu["counters"][name]
         tile_fetches = len(shapes) if want["tiled"] else 0
         strict = want["tiled"] and want["box"] is not None
@@ -3987,6 +4100,8 @@ def main() -> int:
     print("serving kernels vs plain versions on the card:", flush=True)
     snum = check_serving_kernels("cuda", reps=20)
     knum.update({k: snum[k] for k in SERVING_KERNELS})
+    print("box mean vs its plain version on the card (exact):", flush=True)
+    knum["box_mean"] = check_box_mean("cuda", reps=20)
     for name, r in knum.items():
         print(f"  {name:12s} at {r['shape']} {r['dtype']}: kernel"
               f" {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound"
@@ -4007,6 +4122,10 @@ def main() -> int:
           f" bf16 qwen3 shape {snum['sdpa_ms']:.4f} ms (max|d| vs plain"
           f" {snum['sdpa_err']:.3g}); paged_attention in f32"
           f" {snum['paged_attention_f32_ms']:.4f} ms [{card}]")
+    for label, r in knum["box_mean"]["also"]["at_4k"].items():
+        print(f"  box_mean at the {label} {r['shape']}: kernel"
+              f" {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound"
+              f" {r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
     m = knum["mse"]["also"]
     print(f"  mse at {list(MSE_1080P)}: uint8 {m['uint8_1080p_ms']:.4f} ms"
           f" (bound {m['uint8_1080p_bound_ms']:.4f}), f32"

@@ -1,9 +1,10 @@
 """Resizing stored frames to a view's resolution, shared by the read
 path (`store`) and joint compression's mixed resolutions (`joint`).
 
-An integer box factor pools on the host inside the
-``vss.store.resample_box`` span; any other size is the bilinear resize
-on the store's device."""
+An integer box factor pools inside the ``vss.store.resample_box`` span:
+on the card for a CUDA store (``kernels/box_mean.py``), on the host with
+numpy otherwise; any other size is the bilinear resize on the store's
+device."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -12,13 +13,16 @@ import numpy as np
 import torch
 
 from repro_torch import obs as _obs
+from repro_torch.kernels import ops
 
 
 def resample(frames: np.ndarray, resolution: Tuple[int, int], *,
              device: str = "cuda") -> np.ndarray:
     """Resize (T, H, W, C) uint8 frames to (width, height).
 
-    An integer box factor pools on the host, as the reference does.
+    An integer box factor pools on the card when ``device`` is CUDA
+    (the frames go up, the pooled frames come down) and on the host with
+    numpy, as the reference does, otherwise: the same bits either way.
     Any other size is a separable antialiased bilinear resize on
     ``device`` with the weights of ``jax.image.resize(..., "bilinear")``
     (`bilinear_weights`).  The sums run in another order than XLA's, so
@@ -31,6 +35,9 @@ def resample(frames: np.ndarray, resolution: Tuple[int, int], *,
     if ih % h == 0 and iw % w == 0 and ih // h == iw // w:
         f = ih // h  # integer box downsample (matches the codec kernel)
         with _obs.span("vss.store.resample_box"):
+            if torch.device(device).type == "cuda":
+                x = torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+                return ops.box_mean(x, f).cpu().numpy()
             x = frames.astype(np.float32).reshape(t, h, f, w, f, c)
             x = x.mean((2, 4))
             return np.clip(np.round(x), 0, 255).astype(np.uint8)

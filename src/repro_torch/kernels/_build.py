@@ -30,7 +30,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent.parent / "build" / "repro_torch"
 SOURCES = ("delta_codec", "transcode", "warp", "histogram", "paged_attention",
-           "mse")
+           "mse", "box_mean")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",

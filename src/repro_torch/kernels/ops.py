@@ -23,6 +23,7 @@ from repro_torch.kernels._build import (  # noqa: F401
     reset_launch_counts,
     reset_plain_counts,
 )
+from repro_torch.kernels.box_mean import box_mean  # noqa: F401
 from repro_torch.kernels.delta_codec import delta_decode, delta_encode  # noqa: F401
 from repro_torch.kernels.histogram import histogram  # noqa: F401
 from repro_torch.kernels.mse import mse_sum  # noqa: F401

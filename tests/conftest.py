@@ -11,6 +11,12 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card and skips without one;"
+        " `python -m pytest -m cuda` runs these on a machine with one")
+
+
 @pytest.fixture()
 def vss(tmp_path):
     from repro.core.store import VSS
