@@ -1566,11 +1566,9 @@ class VSS:
             self._m_tile_fetches.inc(len(need))
         if len(rows) * len(cols) < p.tiles[0] * p.tiles[1]:
             self._m_tile_reads.inc()
-        stitched: List[np.ndarray] = []
+        decoded: Dict[Tuple[int, int, int], np.ndarray] = {}
         for g in gops:
-            bands: List[np.ndarray] = []
             for r in rows:
-                band: List[np.ndarray] = []
                 for c in cols:
                     frames = io.lookup(g.gop_id, (r, c))
                     if frames is None:
@@ -1578,10 +1576,16 @@ class VSS:
                             self._decode_gop_bytes(blobs[g.gop_id, (r, c)]),
                             g.gop_id, (r, c),
                         )
-                    band.append(frames)
-                bands.append(np.concatenate(band, axis=2))
-            stitched.append(np.concatenate(bands, axis=1))
-        return np.concatenate(stitched, axis=0), (ox, oy)
+                    decoded[g.gop_id, r, c] = frames
+        with _obs.span("vss.store.stitch"):
+            return np.concatenate([
+                np.concatenate([
+                    np.concatenate(
+                        [decoded[g.gop_id, r, c] for c in cols], axis=2)
+                    for r in rows
+                ], axis=1)
+                for g in gops
+            ], axis=0), (ox, oy)
 
     # ------------------------------------------------------------------
     # joint compression driver (§5.1) — candidate search + Algorithm 1
