@@ -1318,6 +1318,7 @@ class VSS:
     ) -> np.ndarray:
         pieces: List[np.ndarray] = []
         touched: List[int] = []
+        tiled = False
         for run_idx, a, b in self._grouped_segments(plan):
             run = plan.runs[run_idx]
             piece, gop_ids = self._extract(
@@ -1325,7 +1326,12 @@ class VSS:
             )
             pieces.append(piece)
             touched.extend(gop_ids)
+            tiled = run.physical.tiles != (1, 1)
         self.catalog.touch_gops(touched)
+        if len(pieces) == 1 and tiled:
+            # a tiled run's assembly is already fresh memory of its own
+            # (a bilinear resize's comes back strided: laid out anew)
+            return np.ascontiguousarray(pieces[0])
         with _obs.span("vss.store.concat"):
             return np.concatenate(pieces, axis=0)
 
@@ -1396,9 +1402,14 @@ class VSS:
         # spatial crop box (ROI → this video's local pixel coords)
         lx0, ly0, lx1, ly1 = self._local_box(p, roi)
         ox = oy = 0  # origin of the loaded pixel region
+        step = int(round(p.fps / out_fps))
+        base = gops[0].start_frame
         if p.tiles != (1, 1):
+            # already the selected frames of the box alone: the cut
+            # below takes the whole of it
             frames, (ox, oy) = self._load_tiled_frames(
-                p, gops, (lx0, ly0, lx1, ly1), io
+                p, gops, (lx0, ly0, lx1, ly1),
+                slice(f0 - base, f1 - base, max(step, 1)), io
             )
         else:
             tail = gops[-1]
@@ -1413,12 +1424,10 @@ class VSS:
                 parts = self._load_gops_frames(gops, io)
             with _obs.span("vss.store.concat"):
                 frames = np.concatenate(parts, axis=0)
-        base = gops[0].start_frame
-        frames = frames[f0 - base : f1 - base]
-        # frame-rate division
-        step = int(round(p.fps / out_fps))
-        if step > 1:
-            frames = frames[::step]
+            frames = frames[f0 - base : f1 - base]
+            # frame-rate division
+            if step > 1:
+                frames = frames[::step]
         frames = frames[:, ly0 - oy : ly1 - oy, lx0 - ox : lx1 - ox]
         # resample to the requested resolution
         frames = resample(frames, resolution, device=self.device)
@@ -1538,15 +1547,20 @@ class VSS:
         p: PhysicalMeta,
         gops: Sequence[GopMeta],
         box: Box,
+        frames: slice,
         io: _BatchIO,
     ) -> Tuple[np.ndarray, Tuple[int, int]]:
-        """Load the tiles of ``gops`` covering local-pixel ``box``,
-        stitch them losslessly, and return the stitched frames plus the
-        pixel origin ``(ox, oy)`` of the stitched region.
+        """Load the tiles of ``gops`` covering local-pixel ``box`` and
+        assemble the answer in one pass: ``frames`` (of the GOPs' frames
+        end to end) of the box's pixels, each copied once from its tile
+        into fresh memory.  Returns the answer and the pixel origin
+        ``(ox, oy)`` of its first pixel.
 
         Each tile is an independently-encoded object, so an ROI read
         fetches and decodes only ``len(rows) * len(cols)`` tiles per
-        GOP instead of the full frame."""
+        GOP instead of the full frame.  The answer is what stitching the
+        covering tiles and slicing ``[frames, y0:y1, x0:x1]`` would give,
+        a box past the covered region clamped as a slice clamps."""
         rows, cols = tiles_covering(p.tiles, p.width, p.height, box)
         ys = tile_bounds(p.height, p.tiles[0])
         xs = tile_bounds(p.width, p.tiles[1])
@@ -1570,22 +1584,54 @@ class VSS:
         for g in gops:
             for r in rows:
                 for c in cols:
-                    frames = io.lookup(g.gop_id, (r, c))
-                    if frames is None:
-                        frames = io.keep(
+                    tile = io.lookup(g.gop_id, (r, c))
+                    if tile is None:
+                        tile = io.keep(
                             self._decode_gop_bytes(blobs[g.gop_id, (r, c)]),
                             g.gop_id, (r, c),
                         )
-                    decoded[g.gop_id, r, c] = frames
-        with _obs.span("vss.store.stitch"):
-            return np.concatenate([
-                np.concatenate([
-                    np.concatenate(
-                        [decoded[g.gop_id, r, c] for c in cols], axis=2)
-                    for r in rows
-                ], axis=1)
-                for g in gops
-            ], axis=0), (ox, oy)
+                    decoded[g.gop_id, r, c] = tile
+        # the box and frame range as slices of the stitched region
+        # would resolve them
+        y0, y1, _ = slice(box[1] - oy, box[3] - oy).indices(
+            ys[rows[-1]][1] - oy)
+        x0, x1, _ = slice(box[0] - ox, box[2] - ox).indices(
+            xs[cols[-1]][1] - ox)
+        y0, y1 = y0 + oy, max(y0, y1) + oy
+        x0, x1 = x0 + ox, max(x0, x1) + ox
+        # each covering tile's overlap with the box, where it goes in
+        # the answer and where it lies in the tile; a tile the box
+        # misses is skipped
+        parts = []
+        for r in rows:
+            ty0, ty1 = max(ys[r][0], y0), min(ys[r][1], y1)
+            for c in cols:
+                tx0, tx1 = max(xs[c][0], x0), min(xs[c][1], x1)
+                if ty0 < ty1 and tx0 < tx1:
+                    parts.append((r, c, (
+                        slice(ty0 - y0, ty1 - y0), slice(tx0 - x0, tx1 - x0),
+                    ), (
+                        slice(ty0 - ys[r][0], ty1 - ys[r][0]),
+                        slice(tx0 - xs[c][0], tx1 - xs[c][0]),
+                    )))
+        corner = decoded[gops[0].gop_id, rows[0], cols[0]]
+        sizes = [len(decoded[g.gop_id, rows[0], cols[0]]) for g in gops]
+        sel = range(*frames.indices(sum(sizes)))
+        out = np.empty((len(sel), y1 - y0, x1 - x0) + corner.shape[3:],
+                       corner.dtype)
+        with _obs.span("vss.store.stitch", bytes=out.nbytes):
+            g0 = 0  # the GOP's first frame, end to end
+            for g, n in zip(gops, sizes):
+                # the answer's frames [k0, k1) are this GOP's
+                k0 = max(0, -((sel.start - g0) // sel.step))
+                k1 = min(len(sel), -((sel.start - g0 - n) // sel.step))
+                if k0 < k1:
+                    fs = slice(sel[k0] - g0, sel[k1 - 1] - g0 + 1, sel.step)
+                    for r, c, (dy, dx), (sy, sx) in parts:
+                        out[k0:k1, dy, dx] = \
+                            decoded[g.gop_id, r, c][fs, sy, sx]
+                g0 += n
+        return out, (x0, y0)
 
     # ------------------------------------------------------------------
     # joint compression driver (§5.1) — candidate search + Algorithm 1
