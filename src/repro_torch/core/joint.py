@@ -26,9 +26,19 @@ homography search (the first and a re-estimate), ``vss.joint.verify``
 around the per-frame warp, PSNR and slicing loop, ``vss.joint.encode``
 around the slices' encodes and puts and ``vss.joint.reconstruct`` around
 a read's rebuild of one GOP (the last two are phases: the codec's spans
-nest in them).  Each pair Algorithm 1 runs on counts once in the
-store's ``vss_joint_pairs_total{outcome}`` (`OUTCOMES`), and each pair
-stored jointly adds its two GOPs to ``vss_joint_gops_total``.
+nest in them).  Inside a rebuild, ``vss.joint.rebuild_warp`` covers the
+warp of side b's composite (upload, ``ops.warp``, the float32 download
+and the host's round, clip and cast) and ``vss.joint.rebuild_concat``
+the joins (the composite, side b's, the segments').  Each pair
+Algorithm 1 runs on counts once in the store's
+``vss_joint_pairs_total{outcome}`` (`OUTCOMES`), and each pair stored
+jointly adds its two GOPs to ``vss_joint_gops_total``.  Each rebuilt GOP
+counts once in ``vss_joint_rebuilds_total{side}`` (`SIDES`) and its
+frames in ``vss_joint_rebuild_frames_total``.
+
+A rebuild fetches its segment objects through the source it is given:
+the store's backend outside a read (`VSS.gop_frames`), the read's own
+GOP loader inside one, so the read's fetch spans and counters hold them.
 
 A store's pass hands one `features.FeatureMemo` to the candidate search
 and to every search here, so a frame's corners and descriptors are
@@ -57,15 +67,19 @@ DUPLICATE_EPS = 0.1  # ‖H−I‖ cutoff (prototype ε = 1/10)
 # duplicate, aborted by the verify step, or no usable homography
 JOINT, DUPLICATE, ABORT, NO_H = "joint", "duplicate", "abort", "no_h"
 OUTCOMES = (JOINT, DUPLICATE, ABORT, NO_H)
+# which GOP of a record a rebuild gave: f, g, or g as a pointer to f
+SIDES = ("a", "b", DUPLICATE)
 
 
 class JointCounters(NamedTuple):
-    """A store's joint-pass counters (``VSS.joint_counters``)."""
+    """A store's joint counters (``VSS.joint_counters``)."""
 
     pairs: Dict[str, object]  # outcome -> vss_joint_pairs_total{outcome}
     candidates: object  # vss_joint_candidates_total
     gops: object  # vss_joint_gops_total
     features: Dict[str, object]  # outcome -> vss_joint_features_total
+    rebuilds: Dict[str, object]  # side -> vss_joint_rebuilds_total{side}
+    rebuild_frames: object  # vss_joint_rebuild_frames_total
 
 
 # ---------------------------------------------------------------------------
@@ -428,21 +442,31 @@ def jointly_compress_gops(
     return joint_id
 
 
-def reconstruct_gop(store, gop) -> np.ndarray:
-    """Rebuild a jointly-compressed GOP's frames (read path hook)."""
+def reconstruct_gop(store, gop, source) -> np.ndarray:
+    """Rebuild a jointly-compressed GOP's frames, its objects fetched
+    through ``source`` (``get`` and ``batch_get``): the backend, or a
+    read's GOP loader (read path hook)."""
     with span("vss.joint.reconstruct"):
-        return _reconstruct_gop(store, gop)
+        frames, side = _reconstruct_gop(store, gop, source)
+    counters = store.joint_counters()
+    counters.rebuilds[side].inc()
+    counters.rebuild_frames.inc(frames.shape[0])
+    return frames
 
 
-def _reconstruct_gop(store, gop) -> np.ndarray:
+def _reconstruct_gop(store, gop, source) -> Tuple[np.ndarray, str]:
     cat = store.catalog
     rec = cat.get_joint(gop.joint_ref)
     side_a = rec["gop_a"] == gop.gop_id
     if rec["duplicate"]:
-        frames = store.gop_frames(cat.get_gop(rec["gop_a"]))
+        side = DUPLICATE
+        frames = store.gop_frames(cat.get_gop(rec["gop_a"]), source)
     else:
-        frames = np.concatenate([_segment_frames(store, seg, side_a)
-                                 for seg in rec["segments"]], axis=0)
+        side = "a" if side_a else "b"
+        parts = [_segment_frames(store, seg, side_a, source)
+                 for seg in rec["segments"]]
+        with span("vss.joint.rebuild_concat"):
+            frames = np.concatenate(parts, axis=0)
     if not side_a and rec["g_scale"] != 1.0:
         s = rec["g_scale"]
         frames = resample(
@@ -451,22 +475,27 @@ def _reconstruct_gop(store, gop) -> np.ndarray:
              int(round(frames.shape[1] / s))),
             device=store.device,
         )
-    return frames
+    return frames, side
 
 
-def _segment_frames(store, seg, side_a: bool) -> np.ndarray:
+def _segment_frames(store, seg, side_a: bool, source) -> np.ndarray:
     """One joint segment's frames of side a ([left ++ overlap]) or of
     side b (the composite re-projected through H, ++ right)."""
     parts = ["left", "overlap"] if side_a else ["left", "overlap", "right"]
-    blobs = store.backend.batch_get([seg["paths"][p] for p in parts])
+    blobs = source.batch_get([seg["paths"][p] for p in parts])
     decoded = {
         p: _codec.decode_gop(_codec.deserialize_gop(b), device=store.device)
         for p, b in zip(parts, blobs)
     }
-    f_comp = np.concatenate([decoded["left"], decoded["overlap"]], axis=2)
+    with span("vss.joint.rebuild_concat"):
+        f_comp = np.concatenate([decoded["left"], decoded["overlap"]],
+                                axis=2)
     if side_a:
         return f_comp
     h = np.asarray(seg["h"], np.float64).reshape(3, 3).astype(np.float32)
-    g_over = warp_frames(f_comp, h, out_hw=(f_comp.shape[1], seg["x_g"]),
-                         device=store.device)
-    return np.concatenate([g_over, decoded["right"]], axis=2)
+    with span("vss.joint.rebuild_warp"):
+        g_over = warp_frames(f_comp, h,
+                             out_hw=(f_comp.shape[1], seg["x_g"]),
+                             device=store.device)
+    with span("vss.joint.rebuild_concat"):
+        return np.concatenate([g_over, decoded["right"]], axis=2)

@@ -541,7 +541,7 @@ class VSS:
             self.backend.configure_concurrency(max(1, self.ingest_workers))
         self._ingest: Optional[_ingest.IngestPipeline] = None
         self._ingest_init = threading.Lock()
-        self._m_joint = None  # joint_counters(), at the first joint pass
+        self._m_joint = None  # joint_counters(), at first joint use
         # -- workload-adaptive format management (profile.py) -------------
         self.profiler: Optional[_profile.AccessProfiler] = None
         self.adaptive: Optional[_profile.AdaptivePolicy] = None
@@ -1436,23 +1436,21 @@ class VSS:
     def _decode_gop_bytes(self, data: bytes) -> np.ndarray:
         return _codec.decode_gop(_stored_gop(data), device=self.device)
 
-    def gop_frames(self, g: GopMeta) -> np.ndarray:
-        """``g``'s frames read straight from the backend, outside any
-        read: no fetch span, no trace node, no read counter.  The joint
-        pass and a joint GOP's rebuild load stored GOPs through here."""
-        return self._gop_frames(g, self.backend.get)
-
-    def _gop_frames(self, g: GopMeta, get) -> np.ndarray:
-        """``g``'s frames, its object fetched through ``get``; a joint
-        GOP is rebuilt from its record's segment objects."""
+    def gop_frames(self, g: GopMeta, source=None) -> np.ndarray:
+        """``g``'s frames, its objects fetched through ``source`` (``get``
+        and ``batch_get``); a joint GOP is rebuilt from its record's
+        segment objects.  By default ``source`` is the backend, outside
+        any read: no fetch span, no trace node, no read counter (the
+        joint pass loads stored GOPs so); a read hands its `_BatchIO`."""
+        source = self.backend if source is None else source
         if g.joint_ref is not None:
-            return _joint.reconstruct_gop(self, g)
-        return self._decode_gop_bytes(get(g.path))
+            return _joint.reconstruct_gop(self, g, source)
+        return self._decode_gop_bytes(source.get(g.path))
 
     def _load_gop_frames(self, g: GopMeta, io: _BatchIO) -> np.ndarray:
         frames = io.lookup(g.gop_id)
         if frames is None:
-            frames = io.keep(self._gop_frames(g, io.get), g.gop_id)
+            frames = io.keep(self.gop_frames(g, io), g.gop_id)
         return frames
 
     def _load_gops_frames(
@@ -1684,9 +1682,10 @@ class VSS:
         return joint_ids
 
     def joint_counters(self):
-        """The joint pass's counters in the store's registry
-        (`joint.JointCounters`), registered at the first joint pass, so a
-        store that never runs one exposes none of them."""
+        """The joint counters in the store's registry
+        (`joint.JointCounters`), registered at the store's first joint
+        pass or first rebuild of a joint GOP, so a store that does
+        neither exposes none of them."""
         if self._m_joint is None:
             reg = self.registry
             self._m_joint = _joint.JointCounters(
@@ -1704,6 +1703,13 @@ class VSS:
                     "frame feature lookups of the joint pass, by whether"
                     " the features were computed or reused",
                     labels={"outcome": o}) for o in MEMO_OUTCOMES},
+                rebuilds={s: reg.counter(
+                    "vss_joint_rebuilds_total",
+                    "jointly stored GOPs rebuilt from their record, by"
+                    " side", labels={"side": s}) for s in _joint.SIDES},
+                rebuild_frames=reg.counter(
+                    "vss_joint_rebuild_frames_total",
+                    "frames the rebuilds of joint GOPs returned"),
             )
         return self._m_joint
 

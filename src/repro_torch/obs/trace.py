@@ -27,9 +27,11 @@ member's ``fetch`` span and the others carry ``shared: true``; ``decode``
 is timed around the execution, its inline fetches included.  Below
 ``decode`` and ``admit`` each stage is a child of its own (``fetch``,
 ``inflate.<coder>``, ``h2d``, ``d2h``, ``deflate.<coder>``,
-``rgb_unpack``, ``resample_box``, ``concat``, ``stitch``;
-``admit_step_mse``, ``admit_put``, ``admit_catalog``), where
-``<coder>`` is ``zstd`` or ``zlib``, whichever ran.  Range names never
+``rgb_unpack``, ``resample_box``, ``concat``, ``stitch``,
+``reconstruct``, a joint GOP's rebuild, with its own ``fetch``, codec,
+``rebuild_warp`` and ``rebuild_concat`` children; ``admit_step_mse``,
+``admit_put``, ``admit_catalog``), where ``<coder>`` is ``zstd`` or
+``zlib``, whichever ran.  Range names never
 start with ``vss.kernel.`` and never take the names a benchmark wraps
 around the program's entry points (``vss.read``, ``vss.append``,
 ``vss.close``, ``vss.encode_gop``, ``vss.decode_gop``).
